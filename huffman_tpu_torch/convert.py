@@ -6,7 +6,9 @@ A ``huffman_tpu`` ``TpuCompressed`` holds ``words`` (W, K) uint32,
 int32 arrays (the ``build_coding_device`` keys, or the subset that
 ``deserialize`` makes).  `from_numpy` takes those fields as numpy arrays
 and returns a `TorchCompressed` on a chosen device; `to_numpy` gives them
-back.
+back.  `batch_from_numpy` and `batch_to_numpy` do the same for the
+``(words (B, W, K) u32, bit_counts (B, K) i32, tables)`` triple of
+``encode_batch``, whose tables carry a leading B.
 """
 
 from __future__ import annotations
@@ -50,3 +52,29 @@ def to_numpy(comp: TorchCompressed) -> dict:
         "k": comp.k,
         "tables": {key: v.cpu().numpy() for key, v in comp.tables.items()},
     }
+
+
+def batch_from_numpy(words, bit_counts, tables: dict, *, device) -> tuple:
+    """``encode_batch``'s triple as tensors on ``device``: words (B, W, K)
+    int32 bit patterns, bit_counts (B, K) int32 and the tables dict."""
+    words = np.ascontiguousarray(np.asarray(words, dtype=np.uint32)).view(np.int32)
+    if words.ndim != 3:
+        raise ValueError(f"words must be (B, W, K), got {words.shape}")
+    bits = np.asarray(bit_counts, dtype=np.int32)
+    if bits.shape != (words.shape[0], words.shape[2]):
+        raise ValueError(f"bit_counts must be (B, K), got {bits.shape}")
+
+    def dev(a):
+        return torch.from_numpy(np.array(a, dtype=np.int32)).to(device)
+
+    return dev(words), dev(bits), {key: dev(v) for key, v in tables.items()}
+
+
+def batch_to_numpy(words, bit_counts, tables: dict) -> tuple:
+    """Inverse of `batch_from_numpy`: words (B, W, K) uint32, bit_counts
+    (B, K) int32 and the tables dict, as numpy arrays."""
+    return (
+        words.cpu().numpy().view(np.uint32),
+        bit_counts.cpu().numpy(),
+        {key: v.cpu().numpy() for key, v in tables.items()},
+    )

@@ -11,14 +11,19 @@
 // few thousand dependent shared-memory operations on one thread (some
 // tens of microseconds); nothing here touches more than 2 KiB.
 //
-// Design: one block of 256 threads, one per symbol.  The clamp, the
-// total and the sort are parallel (each thread finds its own rank by
-// counting the symbols that sort before it), which leaves only the
-// inherently serial tree, repair and code enumeration to thread 0.  The
-// tie rules are those of the JAX table build, so the tables and the blobs
-// are byte-identical.
+// Design: one block of 256 threads per table, one thread per symbol; a
+// batch of B histograms (the vmapped build of _encode_batch in
+// models/tpu_codec.py) is one launch of B blocks.  The clamp, the total
+// and the sort are parallel (each thread finds its own rank by counting
+// the symbols that sort before it), which leaves only the inherently
+// serial tree, repair and code enumeration to thread 0.  The tie rules
+// are those of the JAX table build, so the tables and the blobs are
+// byte-identical.
 //
-// Output: one int32 buffer of kOutLen entries, laid out as kOff* below.
+// Output: one int32 buffer of B*kOutLen entries, field-major: field f of
+// table b at kOff_f*B + b*size_f (kOff* below), so each of the seven keys
+// is one contiguous (B, size) block that the encode and decode kernels
+// read without a copy.  For B = 1 this is one table's kOff* layout.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -39,8 +44,15 @@ constexpr int kOffGRank = 546;         // g_rank[16]
 constexpr int kOffLMin = 562;          // l_min
 constexpr int kOutLen = 563;
 
-__global__ void table_build_kernel(const int* __restrict__ hist,
-                                   int* __restrict__ out) {
+__global__ void table_build_kernel(const int* __restrict__ hists,
+                                   int* __restrict__ outs) {
+  const size_t b = blockIdx.x, nb = gridDim.x;
+  const int* hist = hists + b * kN;
+  int* enc_out = outs + kOffEnc * nb + b * kN;
+  int* lc_out = outs + kOffLc * nb + b * (kL + 1);
+  int* syms_out = outs + kOffSyms * nb + b * kN;
+  int* eb_out = outs + kOffEBound * nb + b * (kL + 2);
+  int* gr_out = outs + kOffGRank * nb + b * (kL + 1);
   __shared__ int cnt[kN];    // clamped counts by symbol
   __shared__ int cd[kN];     // clamped counts by rank (descending)
   __shared__ int syms[kN];   // symbol by rank
@@ -136,19 +148,19 @@ __global__ void table_build_kernel(const int* __restrict__ hist,
     // Decode constants: E[l] = sum_{j<=l} lc[j] << (15-j);
     // g_rank[l] = (#codes shorter than l) - (E[l-1] >> (15-l)).
     int acc = 0, nshort = 0;
-    out[kOffGRank] = 0;
+    gr_out[0] = 0;
     for (int l = 0; l <= kL; ++l) {
-      if (l >= 1) out[kOffGRank + l] = nshort - (acc >> (kL - l));
+      if (l >= 1) gr_out[l] = nshort - (acc >> (kL - l));
       acc += lc[l] << (kL - l);
-      out[kOffEBound + l] = acc;
+      eb_out[l] = acc;
       nshort += lc[l];
     }
-    out[kOffEBound + kL + 1] = acc;
+    eb_out[kL + 1] = acc;
     int l_min = 1;
     for (int l = kL; l >= 1; --l)
       if (lc[l] > 0) l_min = l;
-    out[kOffLMin] = l_min;
-    out[kOffNumSyms] = n;
+    outs[kOffLMin * nb + b] = l_min;
+    outs[kOffNumSyms * nb + b] = n;
 
     // Canonical enumeration in rank order; absent symbols keep entry 0.
     int cur = 0;
@@ -162,17 +174,18 @@ __global__ void table_build_kernel(const int* __restrict__ hist,
     }
   }
   __syncthreads();
-  out[kOffEnc + t] = enc[t];
-  out[kOffSyms + t] = syms[t];
-  if (t <= kL) out[kOffLc + t] = lc[t];
+  enc_out[t] = enc[t];
+  syms_out[t] = syms[t];
+  if (t <= kL) lc_out[t] = lc[t];
 }
 
 }  // namespace
 
-// hist: (256,) int32 counts, total < 2^30.  out: (563,) int32.
-// Returns the CUDA error code of the launch (0 on success).
-extern "C" int table_build_launch(const void* hist, void* out, void* stream) {
-  table_build_kernel<<<1, kN, 0, static_cast<cudaStream_t>(stream)>>>(
+// hist: (B, 256) int32 counts, each row's total < 2^30.  out: B*563
+// int32, field-major as above.  B >= 1.  Returns the CUDA error code of the launch (0 on
+// success).
+extern "C" int table_build_launch(const void* hist, int B, void* out, void* stream) {
+  table_build_kernel<<<B, kN, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(hist), static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }

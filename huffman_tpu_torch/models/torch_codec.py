@@ -4,9 +4,12 @@ HTP3 blobs byte-identical to ``huffman_tpu.models.tpu_codec.TpuCodec``.
 Compress: pad the block to ``s*k`` bytes, histogram (a strided 1-in-32
 row sample at 4 MiB and up), build the canonical table, encode the k
 lanes (byte ``i`` goes to lane ``i % k``) into a (w32, k) matrix of u32
-words.  Decompress: decode ``s`` symbols per lane and flatten.  On CUDA
-tensors each step is one hand-written kernel (``ops/``); on CPU tensors
-their plain PyTorch versions run.
+words.  Decompress: decode ``s`` symbols per lane and flatten.  The
+batched device API (`TorchCodec.encode_batch` / `decode_batch`) does the
+same for B equal-size blocks at once, each with its own table built from
+every byte.  On CUDA tensors each step is one hand-written kernel
+(``ops/``) for the whole batch; on CPU tensors their plain PyTorch
+versions run.
 
 The serialized layout is the one documented at the top of
 ``huffman_tpu/models/tpu_codec.py`` (compact, huff-counts and legacy
@@ -30,10 +33,10 @@ import torch
 from .. import container, native
 from ..constants import NUM_SYMBOLS
 from ..constants import TPU_MAX_CODE_LEN as MAX_CODE_LEN
-from ..ops.decode_bits import decode_lanes, decode_tables_bitserial
-from ..ops.encode import encode_lanes
-from ..ops.lookup import histogram256, table_hist
-from ..ops.table_build import build_coding_device
+from ..ops.decode_bits import decode_lanes, decode_lanes_batch, decode_tables_bitserial
+from ..ops.encode import encode_lanes, encode_lanes_batch
+from ..ops.lookup import histogram256, histogram256_batch, table_hist
+from ..ops.table_build import build_coding_device, build_coding_device_batch
 
 MAGIC = 0x48545033  # 'HTP3'
 #: Header flag (top byte of the len_mask word): compact bit counts and a
@@ -249,6 +252,75 @@ class TorchCodec:
             comp.words, t["e_bound"], t["g_rank"], t["sorted_syms"], -(-n // k)
         )
         return out.reshape(-1)[:n]
+
+    # ---------- batched device API ----------
+
+    def encode_batch(self, blocks: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, dict]:
+        """Compress B equal-size blocks at once, one table each.
+
+        Args:
+          blocks: (B, n_block) uint8, n_block a multiple of the lane count.
+        Returns:
+          (words (B, W, K) int32, bit_counts (B, K) int32, tables dict of
+          the `build_coding_device` keys with a leading B), on the blocks'
+          device; feed them to `decode_batch`.  Every byte is counted for
+          the table (no row sample at any block size).
+        """
+        if blocks.dtype != torch.uint8 or blocks.dim() != 2 or 0 in blocks.shape:
+            raise ValueError("expected a non-empty (B, n_block) uint8 tensor")
+        nb = blocks.shape[1]
+        k = self._lanes(nb)
+        s = -(-nb // k)
+        if s * k != nb:
+            raise ValueError(f"block size {nb} is not a multiple of the lane count {k}")
+        w32 = (s * MAX_CODE_LEN + 31) // 32 + 1
+        tables = build_coding_device_batch(histogram256_batch(blocks))
+        words, bit_counts = encode_lanes_batch(blocks, tables["enc_table"], s, k, w32)
+        return words, bit_counts, tables
+
+    def batch_decode_statics(
+        self, words: torch.Tensor, bit_counts: torch.Tensor, tables: dict, n_block: int
+    ) -> tuple[int, int, int]:
+        """Host decode statics (group, w, blk) of a batch, derived as
+        ``TpuCodec.batch_decode_statics`` derives them: the staging group
+        from the batch's shortest code, w the words any lane needs rounded
+        up to a multiple of 4 (at most W, at least 1), and blk 0 (the card
+        has no grid-block choice).  One device-to-host copy; compute once
+        and pass to repeated `decode_batch` calls.  Of the three, only w
+        changes what `decode_batch` reads."""
+        bcount, n_words, _ = words.shape
+        packed = torch.cat(
+            [
+                bit_counts.max().view(1).to(torch.int32),
+                tables["len_count"].reshape(-1).to(torch.int32),
+            ]
+        ).cpu().numpy()
+        nz = packed[1:].reshape(bcount, MAX_CODE_LEN + 1)[:, 1:] > 0
+        l_min = min(int(np.argmax(row)) + 1 if row.any() else 1 for row in nz)
+        group = max(g for g in (1, 2, 3, 4, 6, 8) if g <= max(1, l_min))
+        w = (int(packed[0]) + 31) // 32
+        w = max(min(-(-w // 4) * 4, n_words), 1)
+        return group, w, 0
+
+    def decode_batch(
+        self,
+        words: torch.Tensor,
+        bit_counts: torch.Tensor,
+        tables: dict,
+        n_block: int,
+        statics: tuple | None = None,
+    ) -> torch.Tensor:
+        """Inverse of `encode_batch`: (B, S, K) uint8 with S = n_block / K;
+        block b is ``out[b].reshape(-1)`` (the strided lane map).
+        ``statics`` from `batch_decode_statics` saves its host copy."""
+        k = words.shape[2]
+        if statics is None:
+            statics = self.batch_decode_statics(words, bit_counts, tables, n_block)
+        _, w, _ = statics
+        return decode_lanes_batch(
+            words, tables["e_bound"], tables["g_rank"], tables["sorted_syms"],
+            -(-n_block // k), w,
+        )
 
     # ---------- bytes API ----------
 

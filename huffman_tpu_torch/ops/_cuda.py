@@ -1,13 +1,14 @@
 """Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
-The four sources compile with nvcc for ``sm_90a`` into one shared
+Each source compiles with nvcc for ``sm_90a`` into its own shared
 library with a plain C interface under ``build/torch_kernels/`` at first
-use, and are called through ctypes: every pointer and the stream are
-``c_void_p``, the stream is PyTorch's current one, and each C entry
-returns ``cudaGetLastError()`` after its launch.
+use, all of them at once (one nvcc process per source), and is called
+through ctypes: every pointer and the stream are ``c_void_p``, the
+stream is PyTorch's current one, and each C entry returns
+``cudaGetLastError()`` after its launch.
 
 ``LAUNCHES`` counts the launches of each kernel, so a caller can show
-that a path really went through the kernels.  It and the library handle
+that a path really went through the kernels.  It and the library handles
 are the module's only state.
 """
 
@@ -17,12 +18,12 @@ import ctypes
 import os
 import shutil
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 from .._build import BUILD_DIR, build_library
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-KERNELS = ("hist256", "table_build", "encode_lanes", "decode_lanes")
-_SOURCES = [os.path.join(_CSRC, f"{name}.cu") for name in KERNELS]
+KERNELS = ("hist256", "hist256_batch", "table_build", "encode_lanes", "decode_lanes")
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,8 +35,18 @@ LAUNCHES = {name: 0 for name in KERNELS}
 #: Where nvcc is looked for after $CUDA_HOME, before $PATH.
 _CUDA_ROOT = "/usr/local/cuda"
 
+#: ctypes argument types of each ``<name>_launch``.
+_VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "hist256": [_VP, _I64, _I32, _I64, _I32, _I32, _VP, _VP],
+    "hist256_batch": [_VP, _I32, _I64, _VP, _VP],
+    "table_build": [_VP, _I32, _VP, _VP],
+    "encode_lanes": [_VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP],
+    "decode_lanes": [_VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP, _VP],
+}
+
 _lock = threading.Lock()
-_lib = None
+_lib = None  # kernel name -> its C entry point, once built
 _build_log = ""
 
 
@@ -49,32 +60,38 @@ def _nvcc() -> str:
     return found
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, compiled first if needed.  Raises when nvcc is
-    missing or the build fails."""
+def load() -> dict:
+    """Each kernel's C entry ``<name>_launch`` by kernel name, the
+    libraries compiled first if needed (all at once).  Raises when nvcc
+    is missing or a build fails."""
     global _lib, _build_log
     with _lock:
         if _lib is not None:
             return _lib
-        path, _build_log = build_library(
-            "huffman_tpu_torch_kernels", _nvcc(), _FLAGS, _SOURCES,
-            os.path.join(BUILD_DIR, "torch_kernels"),
-        )
-        lib = ctypes.CDLL(path)
-        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.hist256_launch.argtypes = [vp, i64, i32, i64, i32, i32, vp, vp]
-        lib.table_build_launch.argtypes = [vp, vp, vp]
-        lib.encode_lanes_launch.argtypes = [vp, vp, i32, i32, i32, vp, vp, vp]
-        lib.decode_lanes_launch.argtypes = [vp, i32, i32, vp, vp, vp, i32, vp, vp]
-        for name in KERNELS:
-            getattr(lib, f"{name}_launch").restype = i32
-        _lib = lib
+        nvcc = _nvcc()
+        out_dir = os.path.join(BUILD_DIR, "torch_kernels")
+
+        def build(name):
+            return build_library(
+                name, nvcc, _FLAGS, [os.path.join(_CSRC, f"{name}.cu")], out_dir
+            )
+
+        with ThreadPoolExecutor(len(KERNELS)) as pool:
+            built = list(pool.map(build, KERNELS))
+        libs = {}
+        for name, (path, _) in zip(KERNELS, built):
+            fn = getattr(ctypes.CDLL(path), f"{name}_launch")
+            fn.argtypes = _ARGTYPES[name]
+            fn.restype = _I32
+            libs[name] = fn
+        _build_log = "".join(log for _, log in built)
+        _lib = libs
         return _lib
 
 
 def build_log() -> str:
     """nvcc's output (register and shared-memory use per kernel) from the
-    build this process made; empty when the library was already built."""
+    build this process made; empty when the libraries were already built."""
     return _build_log
 
 
@@ -85,7 +102,7 @@ def reset_launches() -> None:
 
 def launch(name: str, *args) -> None:
     """Call ``<name>_launch(*args)`` and count it; raises on a CUDA error."""
-    rc = getattr(load(), f"{name}_launch")(*args)
+    rc = load()[name](*args)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
     LAUNCHES[name] += 1

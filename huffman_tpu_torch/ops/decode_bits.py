@@ -10,8 +10,10 @@ window ``win``; its code length is ``1 + #{l in 1..14 : win >= E[l]}``,
 its rank ``clip((win >> (15-len)) + g_rank[len], 0, 255)`` and its byte
 ``syms[rank]``.  Words past a lane's W read as zero.
 
-The CUDA kernel is ``csrc/decode_lanes.cu``; `decode_lanes_plain` is its
-plain PyTorch version.
+A batch of B blocks (the vmapped decode of ``_decode_batch``) is one
+launch of the same kernel, `decode_lanes_batch`; a single block is the
+batch of one.  The CUDA kernel is ``csrc/decode_lanes.cu``;
+`decode_lanes_batch_plain` is its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -69,23 +71,56 @@ def decode_lanes(
     ``words`` is (W, k) int32 holding u32 bit patterns; ``e_bound`` (17,),
     ``g_rank`` (16,) and ``syms`` (256,) are int32.
     """
+    if len(words.shape) != 2:
+        raise ValueError(f"expected (W, k) words, got {tuple(words.shape)}")
     if words.is_cuda:
-        n_words, k = words.shape
-        _cuda.check(words, "words", torch.int32, (n_words, k))
-        _cuda.check(e_bound, "e_bound", torch.int32, (_L + 2,))
-        _cuda.check(g_rank, "g_rank", torch.int32, (_L + 1,))
-        _cuda.check(syms, "syms", torch.int32, (256,))
-        _cuda.load()
-        out = torch.empty((s, k), dtype=torch.uint8, device=words.device)
-        _cuda.launch(
-            "decode_lanes", words.data_ptr(), n_words, k, e_bound.data_ptr(),
-            g_rank.data_ptr(), syms.data_ptr(), s, out.data_ptr(),
-            _cuda.stream(words),
-        )
-        return out
+        return _decode_cuda(words, e_bound, g_rank, syms, 1, s, words.shape[0])
     if words.device.type != "cpu":
         raise ValueError(f"unsupported device {words.device}")
     return decode_lanes_plain(words, e_bound, g_rank, syms, s)
+
+
+def decode_lanes_batch(
+    words: torch.Tensor,
+    e_bound: torch.Tensor,
+    g_rank: torch.Tensor,
+    syms: torch.Tensor,
+    s: int,
+    w: int,
+) -> torch.Tensor:
+    """Decode the first ``s`` symbols of each lane of each of B blocks:
+    (B, s, k) uint8.
+
+    ``words`` is (B, W, k) int32 holding u32 bit patterns, of which only
+    the first ``w`` rows of each block are read (later rows read as zero);
+    ``e_bound`` (B, 17), ``g_rank`` (B, 16) and ``syms`` (B, 256) are int32.
+    """
+    if words.is_cuda:
+        if len(words.shape) != 3 or words.shape[0] < 1:
+            raise ValueError(f"expected (B, W, k) words, got {tuple(words.shape)}")
+        return _decode_cuda(words, e_bound, g_rank, syms, words.shape[0], s, w)
+    if words.device.type != "cpu":
+        raise ValueError(f"unsupported device {words.device}")
+    return decode_lanes_batch_plain(words, e_bound, g_rank, syms, s, w)
+
+
+def _decode_cuda(words, e_bound, g_rank, syms, bcount: int, s: int, w: int):
+    """One launch over ``bcount`` blocks; the output takes the inputs'
+    leading dimensions (none for a single block, (B,) for a batch)."""
+    lead = tuple(words.shape[:-2])
+    n_words, k = words.shape[-2:]
+    _cuda.check(words, "words", torch.int32, lead + (n_words, k))
+    _cuda.check(e_bound, "e_bound", torch.int32, lead + (_L + 2,))
+    _cuda.check(g_rank, "g_rank", torch.int32, lead + (_L + 1,))
+    _cuda.check(syms, "syms", torch.int32, lead + (256,))
+    _cuda.load()
+    out = torch.empty(lead + (s, k), dtype=torch.uint8, device=words.device)
+    _cuda.launch(
+        "decode_lanes", words.data_ptr(), bcount, n_words, max(min(w, n_words), 0), k,
+        e_bound.data_ptr(), g_rank.data_ptr(), syms.data_ptr(), s, out.data_ptr(),
+        _cuda.stream(words),
+    )
+    return out
 
 
 def decode_lanes_plain(
@@ -95,29 +130,52 @@ def decode_lanes_plain(
     syms: torch.Tensor,
     s: int,
 ) -> torch.Tensor:
-    """Plain version of the decode kernel: a loop over the s symbols,
-    vectorised over the k lanes, in int64."""
+    """Plain version of `decode_lanes`: the batch of one."""
     n_words, k = words.shape
+    return decode_lanes_batch_plain(
+        words.view(1, n_words, k), e_bound.view(1, -1), g_rank.view(1, -1),
+        syms.view(1, -1), s, n_words,
+    )[0]
+
+
+def decode_lanes_batch_plain(
+    words: torch.Tensor,
+    e_bound: torch.Tensor,
+    g_rank: torch.Tensor,
+    syms: torch.Tensor,
+    s: int,
+    w: int,
+) -> torch.Tensor:
+    """Plain version of the decode kernel: a loop over the s symbols,
+    vectorised over the B*k lanes of the batch, in int64."""
+    bcount, _, k = words.shape
+    w = max(min(w, words.shape[1]), 0)
     dev = words.device
-    # Two zero rows past the end: windows that reach beyond W read zeros.
+    # The first w rows of each block and two zero rows past them: windows
+    # that reach beyond w read zeros.
     flat = torch.cat(
-        [(words.long() & 0xFFFFFFFF).reshape(-1), torch.zeros(2 * k, dtype=torch.int64, device=dev)]
-    )
-    eb = e_bound[1:_L].to(torch.int64).contiguous()
+        [
+            words[:, :w].long() & 0xFFFFFFFF,
+            torch.zeros((bcount, 2, k), dtype=torch.int64, device=dev),
+        ],
+        dim=1,
+    ).reshape(-1)
+    eb = e_bound[:, 1:_L].to(torch.int64).contiguous()
     gr = g_rank.to(torch.int64)
     sy = syms.to(torch.uint8)
-    lane = torch.arange(k, device=dev)
-    pos = torch.zeros(k, dtype=torch.int64, device=dev)
-    out = torch.empty((s, k), dtype=torch.uint8, device=dev)
+    lane = (torch.arange(bcount, device=dev).view(-1, 1) * ((w + 2) * k)
+            + torch.arange(k, device=dev))
+    pos = torch.zeros((bcount, k), dtype=torch.int64, device=dev)
+    out = torch.empty((bcount, s, k), dtype=torch.uint8, device=dev)
     for r in range(s):
-        w = pos >> 5
-        hi = flat[w.clamp(max=n_words) * k + lane]
-        lo = flat[(w + 1).clamp(max=n_words + 1) * k + lane]
+        i = pos >> 5
+        hi = flat[i.clamp(max=w) * k + lane]
+        lo = flat[(i + 1).clamp(max=w + 1) * k + lane]
         # The 15 bits at offset pos & 31 of the 64-bit pair (hi, lo); an
         # arithmetic shift is harmless since the mask drops the sign bits.
         win = (((hi << 32) | lo) >> (49 - (pos & 31))) & 0x7FFF
         ln = 1 + torch.searchsorted(eb, win, right=True)
-        rank = ((win >> (_L - ln)) + gr[ln]).clamp(0, 255)
-        out[r] = sy[rank]
+        rank = ((win >> (_L - ln)) + gr.gather(1, ln)).clamp(0, 255)
+        out[:, r] = sy.gather(1, rank)
         pos += ln
     return out

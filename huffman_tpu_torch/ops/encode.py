@@ -9,8 +9,10 @@ and stored as big-endian-bit u32 words, word ``w`` of lane ``k`` at
 ``[w, k]``, zero past the lane's end.  Words are int32 tensors holding the
 u32 bit patterns (torch's uint32 lacks shifts).
 
-The CUDA kernel is ``csrc/encode_lanes.cu``; `encode_lanes_plain` is its
-plain PyTorch version.
+A batch of B blocks (the vmapped encode of ``_encode_batch``) is one
+launch of the same kernel, `encode_lanes_batch`; a single block is the
+batch of one.  The CUDA kernel is ``csrc/encode_lanes.cu``;
+`encode_lanes_batch_plain` is its plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -29,20 +31,44 @@ def encode_lanes(
     ``w32`` must exceed the longest lane's word count; the codec's
     ``(s*15 + 31)//32 + 1`` always does.
     """
+    if tuple(padded.shape) != (s * k,) or tuple(enc_table.shape) != (256,):
+        raise ValueError(f"expected ({s * k},) bytes and a (256,) table")
     if padded.is_cuda:
-        _cuda.check(padded, "padded", torch.uint8, (s * k,))
-        _cuda.check(enc_table, "enc_table", torch.int32, (256,))
-        _cuda.load()
-        words = torch.empty((w32, k), dtype=torch.int32, device=padded.device)
-        bits = torch.empty(k, dtype=torch.int32, device=padded.device)
-        _cuda.launch(
-            "encode_lanes", padded.data_ptr(), enc_table.data_ptr(), s, k, w32,
-            words.data_ptr(), bits.data_ptr(), _cuda.stream(padded),
-        )
-        return words, bits
+        return _encode_cuda(padded, enc_table, 1, s, k, w32)
     if padded.device.type != "cpu":
         raise ValueError(f"unsupported device {padded.device}")
     return encode_lanes_plain(padded, enc_table, s, k, w32)
+
+
+def encode_lanes_batch(
+    blocks: torch.Tensor, enc_tables: torch.Tensor, s: int, k: int, w32: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Encode each row of (B, s*k) uint8 ``blocks`` with its row of the
+    (B, 256) int32 ``enc_tables``.  Returns (words (B, w32, k) int32,
+    bit_counts (B, k) int32)."""
+    if blocks.is_cuda:
+        if blocks.dim() != 2 or blocks.shape[0] < 1:
+            raise ValueError(f"expected a (B, {s * k}) batch, got {tuple(blocks.shape)}")
+        return _encode_cuda(blocks, enc_tables, blocks.shape[0], s, k, w32)
+    if blocks.device.type != "cpu":
+        raise ValueError(f"unsupported device {blocks.device}")
+    return encode_lanes_batch_plain(blocks, enc_tables, s, k, w32)
+
+
+def _encode_cuda(blocks, enc_tables, bcount: int, s: int, k: int, w32: int):
+    """One launch over ``bcount`` blocks; the outputs take the inputs'
+    leading dimensions (none for a single block, (B,) for a batch)."""
+    lead = tuple(blocks.shape[:-1])
+    _cuda.check(blocks, "blocks", torch.uint8, lead + (s * k,))
+    _cuda.check(enc_tables, "enc_tables", torch.int32, lead + (256,))
+    _cuda.load()
+    words = torch.empty(lead + (w32, k), dtype=torch.int32, device=blocks.device)
+    bits = torch.empty(lead + (k,), dtype=torch.int32, device=blocks.device)
+    _cuda.launch(
+        "encode_lanes", blocks.data_ptr(), enc_tables.data_ptr(), bcount, s, k, w32,
+        words.data_ptr(), bits.data_ptr(), _cuda.stream(blocks),
+    )
+    return words, bits
 
 
 def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -53,18 +79,31 @@ def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
 def encode_lanes_plain(
     padded: torch.Tensor, enc_table: torch.Tensor, s: int, k: int, w32: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of `encode_lanes`: the batch of one."""
+    words, bits = encode_lanes_batch_plain(
+        padded.view(1, -1), enc_table.view(1, -1), s, k, w32
+    )
+    return words[0], bits[0]
+
+
+def encode_lanes_batch_plain(
+    blocks: torch.Tensor, enc_tables: torch.Tensor, s: int, k: int, w32: int
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the encode kernel: a loop over the s rows,
-    vectorised over the k lanes, in int64."""
-    if padded.dtype != torch.uint8 or tuple(padded.shape) != (s * k,):
-        raise ValueError(f"expected a ({s * k},) uint8 tensor")
-    dev = padded.device
-    tab = enc_table.to(torch.int64)
-    rows = padded.view(s, k).long()
-    lane = torch.arange(k, device=dev)
-    words = torch.zeros(w32 * k, dtype=torch.int64, device=dev)
-    pos = torch.zeros(k, dtype=torch.int64, device=dev)
+    vectorised over the B*k lanes of the batch, in int64."""
+    if blocks.dtype != torch.uint8 or blocks.dim() != 2 or blocks.shape[1] != s * k:
+        raise ValueError(f"expected a (B, {s * k}) uint8 tensor")
+    bcount = blocks.shape[0]
+    dev = blocks.device
+    tab = enc_tables.to(torch.int64).view(bcount, 256)
+    rows = blocks.view(bcount, s, k).long()
+    # Flat index of word 0 of every lane of every block.
+    lane = (torch.arange(bcount, device=dev).view(-1, 1) * (w32 * k)
+            + torch.arange(k, device=dev)).view(-1)
+    words = torch.zeros(bcount * w32 * k, dtype=torch.int64, device=dev)
+    pos = torch.zeros(bcount * k, dtype=torch.int64, device=dev)
     for r in range(s):
-        e = tab[rows[r]]
+        e = tab.gather(1, rows[:, r]).view(-1)
         ln = e & 15
         code = (e >> 4) >> (_L - ln)  # the code's ln bits
         w, end = pos >> 5, (pos & 31) + ln  # end <= 31 + 15
@@ -80,4 +119,7 @@ def encode_lanes_plain(
         words.index_add_(0, w * k + lane, first)
         words.index_add_(0, (w + 1) * k + lane, second)
         pos += ln
-    return _to_int32_bits(words.view(w32, k)), pos.to(torch.int32)
+    return (
+        _to_int32_bits(words.view(bcount, w32, k)),
+        pos.view(bcount, k).to(torch.int32),
+    )

@@ -1,9 +1,11 @@
-"""Byte histograms: the whole block, or the strided row sample that picks
-the table of a large block.
+"""Byte histograms: the whole block, the strided row sample that picks
+the table of a large block, or every row of a batch of blocks.
 
 Counterparts: ``huffman_tpu/ops/lookup.py:histogram256`` and
-``_table_hist`` in ``huffman_tpu/models/tpu_codec.py``.  The CUDA kernel
-is ``csrc/hist256.cu``; `table_hist_plain` is its plain PyTorch version.
+``histogram256_batch``, and ``_table_hist`` in
+``huffman_tpu/models/tpu_codec.py``.  The CUDA kernels are
+``csrc/hist256.cu`` and ``csrc/hist256_batch.cu``; `table_hist_plain` and
+`histogram256_batch_plain` are their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -72,3 +74,36 @@ def table_hist_plain(padded: torch.Tensor, hist_stride: int) -> torch.Tensor:
         sample = padded
     hist = torch.bincount(sample.long(), minlength=256) + bias
     return hist.to(torch.int32)
+
+
+def histogram256_batch(blocks: torch.Tensor) -> torch.Tensor:
+    """(B, 256) int32 counts of every byte of each row of the (B, n) uint8
+    tensor ``blocks``: no sampling and no smoothing at any n, as in the
+    batched encode.  CPU tensors take the plain version, CUDA tensors the
+    kernel."""
+    if blocks.is_cuda:
+        if blocks.dim() != 2 or blocks.shape[0] < 1 or blocks.shape[1] < 1:
+            raise ValueError("expected a non-empty (B, n) uint8 tensor")
+        bcount, n = blocks.shape
+        _cuda.check(blocks, "blocks", torch.uint8, (bcount, n))
+        _cuda.load()
+        out = torch.empty((bcount, 256), dtype=torch.int32, device=blocks.device)
+        _cuda.launch(
+            "hist256_batch", blocks.data_ptr(), bcount, n, out.data_ptr(),
+            _cuda.stream(blocks),
+        )
+        return out
+    if blocks.device.type != "cpu":
+        raise ValueError(f"unsupported device {blocks.device}")
+    return histogram256_batch_plain(blocks)
+
+
+def histogram256_batch_plain(blocks: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of `histogram256_batch`: one ``bincount`` of
+    ``row * 256 + byte``."""
+    if blocks.dtype != torch.uint8 or blocks.dim() != 2:
+        raise ValueError("expected a (B, n) uint8 tensor")
+    bcount = blocks.shape[0]
+    row = torch.arange(bcount, device=blocks.device).view(-1, 1) * 256
+    hist = torch.bincount((blocks.long() + row).reshape(-1), minlength=bcount * 256)
+    return hist.view(bcount, 256).to(torch.int32)

@@ -4,8 +4,15 @@ Counterpart: ``huffman_tpu/ops/table_build.py:build_coding_device``.  The
 CUDA kernel (``csrc/table_build.cu``) ports the scalar Pallas kernels
 ``_tree_kernel`` and ``_full_table_kernel`` and the XLA steps around them
 (clamp, stable sort, canonical derivation); `build_coding_plain` is the
-same algorithm as a Python loop.  Both write one flat int32 buffer, which
-`_unpack` splits into the seven keys of the JAX version.
+same algorithm as a Python loop.  Both write one flat int32 buffer,
+which `_unpack` splits into the seven keys of the JAX version.
+
+A batch of B histograms (the vmapped build of ``_encode_batch`` in
+``huffman_tpu/models/tpu_codec.py``) is one launch of the same kernel,
+one block per table; a single table is the batch of one.  The buffer of
+a batch is field-major (field ``key`` of table b at ``off*B + b*size``),
+so every key is a contiguous (B, ...) view that the encode and decode
+kernels take as it is.
 """
 
 from __future__ import annotations
@@ -16,7 +23,8 @@ from ..constants import NUM_SYMBOLS as _N
 from ..constants import TPU_MAX_CODE_LEN as _L
 from . import _cuda
 
-# Layout of the flat table buffer (csrc/table_build.cu, kOff*).
+# Layout of one table's flat buffer (csrc/table_build.cu, kOff*); a
+# batch of B scales every offset by B.
 _FIELDS = (
     ("enc_table", 0, _N),
     ("len_count", 256, _L + 1),
@@ -31,9 +39,19 @@ _DEPTH = 64
 _BIG = 1 << 30
 
 
-def _unpack(buf: torch.Tensor) -> dict:
+def _unpack(buf: torch.Tensor, bcount: int | None = None) -> dict:
+    """Split the field-major buffer of ``bcount`` tables into the seven
+    keys, each a contiguous view with a leading ``bcount``; with
+    ``bcount`` None, the one table's keys without it."""
+    if bcount is None:
+        return {
+            key: buf[off] if size is None else buf[off : off + size]
+            for key, off, size in _FIELDS
+        }
     return {
-        key: buf[off] if size is None else buf[off : off + size]
+        key: buf[off * bcount : (off + 1) * bcount]
+        if size is None
+        else buf[off * bcount : (off + size) * bcount].view(bcount, size)
         for key, off, size in _FIELDS
     }
 
@@ -50,19 +68,50 @@ def build_coding_device(hist: torch.Tensor) -> dict:
     return _unpack(build_coding_flat(hist))
 
 
+def build_coding_device_batch(hists: torch.Tensor) -> dict:
+    """(B, 256) integer counts -> the `build_coding_device` dict of each
+    row, every key with a leading B."""
+    return _unpack(build_coding_flat_batch(hists), hists.shape[0])
+
+
 def build_coding_flat(hist: torch.Tensor) -> torch.Tensor:
     """The (TABLE_LEN,) int32 buffer behind `build_coding_device`."""
     if hist.is_cuda:
-        _cuda.check(hist, "hist", torch.int32, (_N,))
-        _cuda.load()
-        out = torch.empty(TABLE_LEN, dtype=torch.int32, device=hist.device)
-        _cuda.launch(
-            "table_build", hist.data_ptr(), out.data_ptr(), _cuda.stream(hist)
-        )
-        return out
+        return _build_cuda(hist, 1)
     if hist.device.type != "cpu":
         raise ValueError(f"unsupported device {hist.device}")
     return build_coding_plain(hist)
+
+
+def build_coding_flat_batch(hists: torch.Tensor) -> torch.Tensor:
+    """The (B * TABLE_LEN,) field-major int32 buffer of a (B, 256) batch:
+    one kernel launch on a CUDA tensor, `build_coding_plain_batch` on a
+    CPU one."""
+    if hists.is_cuda:
+        if hists.dim() != 2 or hists.shape[0] < 1:
+            raise ValueError(f"expected a (B, 256) batch, got {tuple(hists.shape)}")
+        return _build_cuda(hists, hists.shape[0])
+    if hists.device.type != "cpu":
+        raise ValueError(f"unsupported device {hists.device}")
+    return build_coding_plain_batch(hists)
+
+
+def _build_cuda(hists: torch.Tensor, bcount: int) -> torch.Tensor:
+    """One launch over ``bcount`` histograms, (256,) or (B, 256)."""
+    _cuda.check(hists, "hists", torch.int32, tuple(hists.shape[:-1]) + (_N,))
+    _cuda.load()
+    out = torch.empty(bcount * TABLE_LEN, dtype=torch.int32, device=hists.device)
+    _cuda.launch("table_build", hists.data_ptr(), bcount, out.data_ptr(), _cuda.stream(hists))
+    return out
+
+
+def build_coding_plain_batch(hists: torch.Tensor) -> torch.Tensor:
+    """Plain version of the batched launch: `build_coding_plain` of each
+    row, laid out field-major on ``hists``' device."""
+    if hists.dim() != 2:
+        raise ValueError(f"expected a (B, 256) batch, got {tuple(hists.shape)}")
+    rows = torch.stack([build_coding_plain(h) for h in hists])
+    return torch.cat([rows[:, off : off + (size or 1)].reshape(-1) for _, off, size in _FIELDS])
 
 
 def build_coding_plain(hist: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from huffman_tpu.bench import workloads as jax_workloads
+from huffman_tpu_torch import TorchCodec
 from huffman_tpu_torch.bench import workloads
 from huffman_tpu_torch.ops import _cuda, decode_bits, encode, lookup, table_build
 
@@ -87,6 +88,37 @@ CUDA_CALLS = {
         _FakeCudaTensor((16,), torch.int32),
         _FakeCudaTensor((256,), torch.int32),
         8,
+    ),
+    "histogram256_batch": lambda: lookup.histogram256_batch(
+        _FakeCudaTensor((3, 4096), torch.uint8)
+    ),
+    "build_coding_batch": lambda: table_build.build_coding_device_batch(
+        _FakeCudaTensor((3, 256), torch.int32)
+    ),
+    "encode_lanes_batch": lambda: encode.encode_lanes_batch(
+        _FakeCudaTensor((3, 64), torch.uint8), _FakeCudaTensor((3, 256), torch.int32), 8, 8, 5
+    ),
+    "decode_lanes_batch": lambda: decode_bits.decode_lanes_batch(
+        _FakeCudaTensor((3, 5, 8), torch.int32),
+        _FakeCudaTensor((3, 17), torch.int32),
+        _FakeCudaTensor((3, 16), torch.int32),
+        _FakeCudaTensor((3, 256), torch.int32),
+        8,
+        4,
+    ),
+    "encode_batch": lambda: TorchCodec(k=8, device="cuda").encode_batch(
+        _FakeCudaTensor((3, 64), torch.uint8)
+    ),
+    "decode_batch": lambda: TorchCodec(k=8, device="cuda").decode_batch(
+        _FakeCudaTensor((3, 5, 8), torch.int32),
+        _FakeCudaTensor((3, 8), torch.int32),
+        {
+            "e_bound": _FakeCudaTensor((3, 17), torch.int32),
+            "g_rank": _FakeCudaTensor((3, 16), torch.int32),
+            "sorted_syms": _FakeCudaTensor((3, 256), torch.int32),
+        },
+        64,
+        statics=(1, 4, 0),
     ),
 }
 
