@@ -34,19 +34,40 @@ Phases (any failure exits non-zero; no phase failure is caught):
    block (the device path with CUDA events after warm-up and its device
    busy time, the bytes API as the median of 5 synchronised host-clock
    calls); and the batched device path at B = 1, 16 and 160 (the same,
-   decode with statics precomputed).
+   decode with statics precomputed).  Also hist256's full count of the
+   16 MiB block, and hist256_onehot in each MMA type on it, each beside
+   its plain version and ``torch.bincount`` (the library yardstick).
+6. hist256_onehot (the histogram race's kernel) in each MMA type (s8,
+   bf16, tf32) must equal its plain version and hist256's full count on
+   three 16 MiB blocks (biased, uniform, and constant, whose one bin is
+   2^24) and on a 256 MiB block, where every warp flushes its sums
+   mid-loop; a length that is not a multiple of 2^19 must raise.
+7. The measurement path at full width, with the launch counters zeroed
+   just before: ``bench_torch_codec`` on the 16 MiB biased block (round
+   trip, ratio len(blob) / n of phase 4), ``run_suite`` of the biased and
+   uniform workloads at 4 MiB over the suite's rows
+   (``tools.run_benchmarks.suite_codecs``, every row must round-trip),
+   and ``race(16 MiB)`` (every row OK); the counters of hist256_onehot,
+   hist256, table_build, encode_lanes and decode_lanes must be nonzero
+   after.  It runs after phase 5's profiler windows, which leave every
+   later launch costing the host more; its timings replay CUDA graphs,
+   one launch per rep.
 
 The line before the last is a JSON object of the kernels (launches
-counted in phases 4 and 4b; ms is the kernel's device time at the
-single-block shapes, hist256_batch's at B = 160; plain_ms the plain
-version's call); the last is ``{"ok": true, "device": {...}}``.  Imports
+counted in phases 4, 4b and 7; ms is the kernel's device time at the
+single-block shapes, hist256_batch's at B = 160, hist256_onehot's in
+bf16 (the TPU's base variant) at 16 MiB; plain_ms the plain version's
+call; bound_ms the least time of the same work on an H100 at its
+published peaks, from the bytes moved or the tensor operations, and for
+table_build, which moves 2 KiB, from its serial chain of dependent steps;
+library_ms ``torch.bincount``'s call where it computes the same
+function); the last is ``{"ok": true, "device": {...}}``.  Imports
 neither jax nor huffman_tpu.
 """
 
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 import time
 
@@ -76,14 +97,30 @@ KERNELS = {
         "huffman_tpu_torch/csrc/decode_lanes.cu",
         "huffman_tpu/ops/decode_pallas.py:118",
     ),
+    "hist256_onehot": (
+        "huffman_tpu_torch/csrc/hist256_onehot.cu",
+        "tools/hist_experiments.py:36",
+    ),
 }
+# The kernels each path must launch.
+SINGLE_PATH = ("hist256", "table_build", "encode_lanes", "decode_lanes")
+BATCHED_PATH = ("hist256_batch", "table_build", "encode_lanes", "decode_lanes")
+MEASURE_PATH = ("hist256_onehot",) + SINGLE_PATH
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense): device memory
+# bytes/s and tensor-core operations/s by input type.
+HBM_BPS = 3.35e12
+MMA_OPS = {"s8": 1979e12, "bf16": 989e12, "tf32": 495e12}
+# A dependent arithmetic instruction waits 4 cycles (CUDA C++ Programming
+# Guide, multiprocessor level); 1980 MHz is the H100's maximum SM clock.
+DEP_CYCLES, SM_HZ = 4, 1980e6
 
 
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip().splitlines()[0]
+def bound(nbytes: float, ops: float = 0.0, peak: float = 1.0) -> tuple[float, str]:
+    """(least ms, what bounds it) for moving ``nbytes`` through device
+    memory and doing ``ops`` operations at ``peak`` per second."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / peak * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -118,24 +155,20 @@ def _profile(fn, reps: int):
     return prof.key_averages()
 
 
-def kernel_ms(fn, kernel: str, reps: int = 50) -> float:
+def kernel_ms(fn, kernel: str, reps: int = 50, match: str | None = None) -> float:
     """Mean device milliseconds of one launch of the CUDA function
-    ``<kernel>_kernel`` over ``reps`` calls of ``fn()``, from the
-    profiler's device trace.  (`cuda_ms` of back-to-back calls also counts
-    the host's time to enqueue each call, which bounds a kernel of a few
-    microseconds.)  Fails unless each call launched it once."""
-    hits = [e for e in _profile(fn, reps) if f"{kernel}_kernel(" in e.key]
+    ``<kernel>_kernel`` (or whose name holds ``match``) over ``reps``
+    calls of ``fn()``, from the profiler's device trace.  (`cuda_ms` of
+    back-to-back calls also counts the host's time to enqueue each call,
+    which bounds a kernel of a few microseconds.)  Fails unless each call
+    launched it once."""
+    match = match or f"{kernel}_kernel("
+    hits = [e for e in _profile(fn, reps) if match in e.key]
     if len(hits) != 1 or hits[0].count != reps:
         raise AssertionError(
             f"profiler saw {[(e.key, e.count) for e in hits]}, expected {reps} x {kernel}"
         )
     return hits[0].device_time_total / reps / 1e3
-
-
-def busy_ms(fn, reps: int = 20) -> float:
-    """Mean device-busy milliseconds (kernels, memsets, copies) per call of
-    ``fn()``, from the profiler's device trace."""
-    return sum(e.self_device_time_total for e in _profile(fn, reps)) / reps / 1e3
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -177,9 +210,18 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     from huffman_tpu_torch import TorchCodec
-    from huffman_tpu_torch.bench import workloads
+    from huffman_tpu_torch.bench import render_markdown, run_suite, workloads
+    from huffman_tpu_torch.bench.harness import bench_torch_codec, card_line, device_busy_ms
     from huffman_tpu_torch.constants import TPU_MAX_CODE_LEN
     from huffman_tpu_torch.ops import _cuda
+    from huffman_tpu_torch.ops.hist_variants import (
+        CHUNK,
+        MMA_TYPES,
+        hist_variant,
+        hist_variant_plain,
+    )
+    from huffman_tpu_torch.tools.hist_experiments import format_row, race
+    from huffman_tpu_torch.tools.run_benchmarks import suite_codecs
     from huffman_tpu_torch.models.torch_codec import TorchCompressed
     from huffman_tpu_torch.ops.decode_bits import (
         decode_lanes,
@@ -200,6 +242,7 @@ def main() -> None:
         table_hist_plain,
     )
     from huffman_tpu_torch.ops.table_build import (
+        TABLE_LEN,
         _unpack,
         build_coding_device,
         build_coding_flat,
@@ -292,7 +335,7 @@ def main() -> None:
         raise AssertionError("k=8192 on 4 MiB does not round-trip")
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
-    missing = [k for k, v in launches.items() if v == 0 and k != "hist256_batch"]
+    missing = [k for k in SINGLE_PATH if launches[k] == 0]
     if missing:
         raise AssertionError(f"single-block path never launched {missing}")
     if round(ratio, 4) != RATIO:
@@ -364,7 +407,7 @@ def main() -> None:
         raise AssertionError(f"the {BATCH} x 100 KiB batch does not round-trip")
     if not torch.equal(out_c.reshape(3, NB), const):
         raise AssertionError("the batch holding a constant block does not round-trip")
-    missing = [k for k, v in launches_b.items() if v == 0 and k != "hist256"]
+    missing = [k for k in BATCHED_PATH if launches_b[k] == 0]
     if missing:
         raise AssertionError(f"batched path never launched {missing}")
 
@@ -409,6 +452,20 @@ def main() -> None:
     plain_ms = {name: cuda_ms(plain, reps) for name, (_, plain, reps) in single.items()}
     bcall_ms = {name: cuda_ms(kern, 50) for name, (kern, _, _) in batched.items()}
     bplain_ms = {name: cuda_ms(plain, reps) for name, (_, plain, reps) in batched.items()}
+    # Full counts of the 16 MiB block: hist256 and hist256_onehot by MMA
+    # type, beside torch.bincount of the same bytes; hist256's sampled
+    # call beside bincount of its 512 KiB sample, gathered beforehand.
+    full = {"hist256": (lambda: table_hist(data, 1), lambda: table_hist_plain(data, 1), 20)}
+    for mma in MMA_TYPES:
+        full[mma] = (lambda mma=mma: hist_variant(data, mma),
+                     lambda mma=mma: hist_variant_plain(data, mma), 5)
+    fcall_ms = {name: cuda_ms(kern, 50) for name, (kern, _, _) in full.items()}
+    fplain_ms = {name: cuda_ms(plain, reps) for name, (_, plain, reps) in full.items()}
+    sample = data.view(-1, 512 * 32)[:, :512].contiguous().view(-1)
+    library_ms = {
+        "hist256": cuda_ms(lambda: torch.bincount(sample, minlength=256), 20),
+        "hist256_onehot": cuda_ms(lambda: torch.bincount(data, minlength=256), 20),
+    }
 
     comp_t = codec.deserialize(blob)
     codec.decode_device(comp_t)  # fetches and caches the block's metadata
@@ -441,18 +498,119 @@ def main() -> None:
     for name, (kern, _, _) in batched.items():
         print(f"time {name} B={BATCH}: kernel {kernel_ms(kern, name):.6f} ms device, "
               f"call {bcall_ms[name]:.6f} ms, plain {bplain_ms[name]:.6f} ms")
+    print(f"time torch.bincount of hist256's 512 KiB sample: call {library_ms['hist256']:.6f} ms")
+    full_ms = {}
+    for key, (kern, _, _) in full.items():
+        if key == "hist256":
+            label, full_ms[key] = key, kernel_ms(kern, key)
+        else:
+            label = f"hist256_onehot {key}"
+            full_ms[key] = kernel_ms(kern, "hist256_onehot", match="hist256_onehot_kernel<")
+        print(f"time {label} full count 16 MiB: kernel {full_ms[key]:.6f} ms device, "
+              f"call {fcall_ms[key]:.6f} ms, plain {fplain_ms[key]:.6f} ms, "
+              f"torch.bincount call {library_ms['hist256_onehot']:.6f} ms")
+    ms["hist256_onehot"] = full_ms["bf16"]
+    plain_ms["hist256_onehot"] = fplain_ms["bf16"]
     for key, (nbytes, enc_fn, dec_fn) in paths.items():
         gib = nbytes / (1 << 30)
         e_ms, dd_ms = path_ms[key]
         print(f"{key}: encode {e_ms:.6f} ms = {gib / (e_ms / 1e3):.4f} GiB/s "
-              f"(device busy {busy_ms(enc_fn):.6f} ms), decode {dd_ms:.6f} ms = "
-              f"{gib / (dd_ms / 1e3):.4f} GiB/s (device busy {busy_ms(dec_fn):.6f} ms)")
+              f"(device busy {device_busy_ms(enc_fn):.6f} ms), decode {dd_ms:.6f} ms = "
+              f"{gib / (dd_ms / 1e3):.4f} GiB/s (device busy {device_busy_ms(dec_fn):.6f} ms)")
     gib = N / (1 << 30)
     print(f"bytes API (median of 5, host clock): compress {c_ms:.3f} ms = "
           f"{gib / (c_ms / 1e3):.4f} GiB/s, decompress {d_ms:.3f} ms = "
           f"{gib / (d_ms / 1e3):.4f} GiB/s; serialize {ser_ms:.3f} ms, "
-          f"deserialize {des_ms:.3f} ms")
+          f"deserialize {des_ms:.3f} ms", flush=True)
 
+    # 6. hist256_onehot in each MMA type against its plain version and
+    # hist256's full count.
+    before = _cuda.LAUNCHES["hist256_onehot"]
+    uniform_np = np.random.default_rng(6).integers(0, 256, N, dtype=np.uint8)
+    blocks6 = {
+        "biased": data,
+        "uniform": torch.from_numpy(uniform_np).to(dev),
+        "constant": torch.full((N,), 0xA5, dtype=torch.uint8, device=dev),
+        "biased x16 (256 MiB)": data.repeat(16),
+    }
+    err["hist256_onehot"] = 0
+    for bname, blk in blocks6.items():
+        counts = table_hist(blk, 1)
+        for mma in MMA_TYPES:
+            got = hist_variant(blk, mma)
+            err["hist256_onehot"] = max(
+                err["hist256_onehot"],
+                expect_equal(f"hist256_onehot {mma} {bname}", got, hist_variant_plain(blk, mma)),
+            )
+            if not torch.equal(got, counts):
+                raise AssertionError(f"hist256_onehot {mma} {bname} differs from hist256's count")
+    if int(table_hist(blocks6["constant"], 1)[0xA5]) != 1 << 24:
+        raise AssertionError("the constant block's bin is not 2^24")
+    try:
+        hist_variant(data[: N - 64], "s8")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"a length that is not a multiple of {CHUNK} did not raise")
+    torch.cuda.synchronize()
+    if _cuda.LAUNCHES["hist256_onehot"] == before:
+        raise AssertionError("phase 6 never launched hist256_onehot")
+    del blocks6
+    print(f"hist256_onehot: s8, bf16 and tf32 equal their plain versions and hist256's "
+          f"full count on the biased, uniform and constant (bin 2^24) 16 MiB blocks and "
+          f"a 256 MiB block; a length off the {CHUNK}-byte grid raises", flush=True)
+
+    # 7. The measurement path at full width; the counters cover this
+    # phase only.
+    _cuda.reset_launches()
+    t7 = time.perf_counter()
+    row = bench_torch_codec(TorchCodec(device=dev), data_np.tobytes())
+    if not row["roundtrip_ok"]:
+        raise AssertionError("bench_torch_codec: the 16 MiB block does not round-trip")
+    if row["ratio"] != len(blob) / N:
+        raise AssertionError(f"bench_torch_codec ratio {row['ratio']} != {len(blob) / N}")
+    gib = N / (1 << 30)
+    e_ms, dd_ms = path_ms["device path"]
+    print(f"bench_torch_codec 16 MiB: ratio {row['ratio']:.6f} (n / blob {1 / row['ratio']:.4f}), "
+          f"round trip ok; sustained compress {row['compress_bps'] / (1 << 30):.4f} GiB/s, "
+          f"decompress {row['decompress_bps'] / (1 << 30):.4f} GiB/s (CUDA-graph replays); "
+          f"phase 5's device path by events: encode {gib / (e_ms / 1e3):.4f}, "
+          f"decode {gib / (dd_ms / 1e3):.4f} GiB/s", flush=True)
+    suite = run_suite(["biased", "uniform"], suite_codecs(dev), 4 << 20, reps=8)
+    print(render_markdown(suite), flush=True)
+    bad = [(w, r["method"], r["streams"]) for w, blk in suite.items() for r in blk["rows"]
+           if not r["roundtrip_ok"]]
+    if bad:
+        raise AssertionError(f"suite rows that do not round-trip: {bad}")
+    rows = race(N)
+    for r in rows:
+        print(f"race: {format_row(r)}")
+    bad = [r["name"] for r in rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"race rows that differ from histogram256: {bad}")
+    torch.cuda.synchronize()
+    launches_m = dict(_cuda.LAUNCHES)
+    missing = [k for k in MEASURE_PATH if launches_m[k] == 0]
+    if missing:
+        raise AssertionError(f"measurement path never launched {missing}")
+    print(f"launches in the measurement phase: {json.dumps(launches_m)} "
+          f"({time.perf_counter() - t7:.1f} s)", flush=True)
+
+    # Bounds at the shapes of `ms`: each input read once, each output
+    # written once; the decode reads only the payload bits of its lanes.
+    # table_build's tree is serial on one thread: for this run's n symbols,
+    # 2 (n - 1) dependent picks of the merges and n - 2 dependent depth
+    # steps, each at least one dependent instruction.
+    n_syms = int((hist > 0).sum())
+    chain_ms = (3 * n_syms - 4) * DEP_CYCLES / SM_HZ * 1e3
+    bounds = {
+        "hist256": bound(N // 32 + 256 * 4),
+        "hist256_batch": bound(BATCH * NB + BATCH * 256 * 4),
+        "table_build": max(bound(256 * 4 + TABLE_LEN * 4), (chain_ms, "operations")),
+        "encode_lanes": bound(N + 256 * 4 + w32 * K * 4 + K * 4),
+        "decode_lanes": bound(int(bits.sum()) / 8 + (2 * TPU_MAX_CODE_LEN + 3 + 256) * 4 + N),
+        "hist256_onehot": bound(N + 256 * 4, 512 * N, MMA_OPS["bf16"]),
+    }
     print(f"card: {card}")
     print(json.dumps({"kernels": [
         {
@@ -460,10 +618,13 @@ def main() -> None:
             "route": "cuda",
             "source": src,
             "replaces": replaces,
-            "launches": launches[name] + launches_b[name],
+            "launches": launches[name] + launches_b[name] + launches_m[name],
             "max_abs_err": err[name],
             "ms": ms[name],
             "plain_ms": plain_ms[name],
+            "bound_ms": bounds[name][0],
+            "bound_by": bounds[name][1],
+            "library_ms": library_ms.get(name),
         }
         for name, (src, replaces) in KERNELS.items()
     ]}))

@@ -1,0 +1,214 @@
+"""Benchmark timing harness.
+
+Counterpart: ``huffman_tpu/bench/harness.py``.  Two timing modes:
+
+* **sustained** (device codecs): repeat the body R times with a carried
+  data dependency; cost = (t(R) - t(1)) / (R - 1).  On a CUDA device one
+  step is captured in a CUDA graph and replayed, timed by CUDA events; on
+  the CPU the body runs eagerly under the host clock.
+* **wall** (host codecs): classic repeated wall-clock timing.
+
+Results are plain dicts, JSON-serializable, rendered by
+:mod:`huffman_tpu_torch.bench.table`.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+
+def sustained_seconds(
+    body, reps: int = 32, tries: int = 2, max_reps: int = 512, *, device="cuda"
+) -> float:
+    """Seconds per run of ``body(pert)``, which returns a float32 scalar
+    tensor on ``device``; ``pert`` is a 0-d uint8 tensor that is always 0
+    but depends on the previous run's result, so runs cannot be folded
+    together.
+
+    On a CUDA device the body runs once to warm up, then one step
+    ``acc += body(isnan(acc))`` is captured in a CUDA graph, and R
+    replays are timed between CUDA events, best of ``tries``.  The body
+    must not read anything back to the host; a failed capture raises.  On
+    the CPU the steps run eagerly under the host clock.  The rep count
+    escalates x4 while t(R) - t(1) stays within 15 ms, up to ``max_reps``,
+    as in the JAX harness.
+    """
+    dev = torch.device(device)
+    acc = torch.zeros((), dtype=torch.float32, device=dev)
+
+    def step():
+        acc.add_(body(torch.isnan(acc).to(torch.uint8)))
+
+    if dev.type == "cuda":
+        measure = _graph_timer(step, dev, tries)
+    elif dev.type == "cpu":
+        def measure(r):
+            step()
+            best = float("inf")
+            for _ in range(tries):
+                t0 = time.perf_counter()
+                for _ in range(r):
+                    step()
+                best = min(best, time.perf_counter() - t0)
+            return best
+    else:
+        raise ValueError(f"unsupported device {dev}")
+
+    t1 = measure(1)
+    tr = measure(reps)
+    while tr - t1 <= 0.015 and reps < max_reps:
+        reps *= 4
+        tr = measure(reps)
+    return max((tr - t1) / (reps - 1), 1e-9)
+
+
+def _graph_timer(step, dev, tries: int):
+    """``measure(r)``: best seconds of r replays of ``step`` captured in
+    one CUDA graph, by CUDA events."""
+    with torch.cuda.device(dev):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()  # warm-up: builds the kernels and caches before capture
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+    def measure(r):
+        with torch.cuda.device(dev):
+            graph.replay()
+            torch.cuda.synchronize()
+            best = float("inf")
+            for _ in range(tries):
+                start.record()
+                for _ in range(r):
+                    graph.replay()
+                end.record()
+                end.synchronize()
+                best = min(best, start.elapsed_time(end) / 1e3)
+            return best
+
+    return measure
+
+
+def card_line() -> str:
+    """The first card's name and power limit as nvidia-smi prints them;
+    raises where there is no nvidia-smi."""
+    import subprocess
+
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def device_busy_ms(fn, reps: int = 20) -> float:
+    """Mean device-busy milliseconds (kernels, memsets, copies) per call
+    of ``fn()``, from the profiler's device trace.  Once the profiler has
+    run, CUDA launches of the process cost the host more, so take event
+    and graph timings first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()) / reps / 1e3
+
+
+def wall_seconds(fn, min_time: float = 0.3) -> float:
+    fn()  # warm
+    reps, total = 0, 0.0
+    best = float("inf")
+    while total < min_time:
+        t0 = time.perf_counter()
+        fn()
+        dt = time.perf_counter() - t0
+        best = min(best, dt)
+        total += dt
+        reps += 1
+        if reps > 1000:
+            break
+    return best
+
+
+def bench_torch_codec(codec, raw: bytes, reps: int = 32) -> dict:
+    """Sustained compress/decompress rates for a TorchCodec on its device:
+    the encode is ``encode_device`` (histogram, table, lane encode), the
+    decode the lane decode of the block's words, neither copying to the
+    host."""
+    from ..ops.decode_bits import decode_lanes
+
+    n = len(raw)
+    data = torch.from_numpy(np.frombuffer(raw, dtype=np.uint8).copy()).to(codec.device)
+    comp = codec.encode_device(data)
+    # decode_device fetches and caches the block's host metadata, so no
+    # timed body copies to the host.
+    ok = codec.decode_device(comp).cpu().numpy().tobytes() == raw
+    s = -(-n // comp.k)
+    words, t = comp.words, comp.tables
+
+    def enc_once(pert):
+        c = codec.encode_device(data + pert)
+        return (c.bit_counts.sum() + c.tables["enc_table"].sum()).to(torch.float32)
+
+    def dec_once(pert):
+        o = decode_lanes(
+            words + pert.to(torch.int32), t["e_bound"], t["g_rank"], t["sorted_syms"], s
+        )
+        return o.sum().to(torch.float32)  # a u8 sum accumulates in int64, no copy
+
+    t_c = sustained_seconds(enc_once, reps=reps, device=codec.device)
+    t_d = sustained_seconds(dec_once, reps=reps, device=codec.device)
+    blob = codec.serialize(comp)
+    return {
+        "method": codec.name,
+        "streams": comp.k,
+        "compress_bps": n / t_c,
+        "decompress_bps": n / t_d,
+        "ratio": len(blob) / n,
+        "roundtrip_ok": bool(ok),
+    }
+
+
+def bench_bytes_codec(codec, raw: bytes, name: str, streams) -> dict:
+    """Wall-clock rates for any {compress, decompress} bytes codec."""
+    blob = codec.compress(raw)
+    ok = codec.decompress(blob) == raw
+    t_c = wall_seconds(lambda: codec.compress(raw))
+    t_d = wall_seconds(lambda: codec.decompress(blob))
+    return {
+        "method": name,
+        "streams": streams,
+        "compress_bps": len(raw) / t_c,
+        "decompress_bps": len(raw) / t_d,
+        "ratio": len(blob) / len(raw),
+        "roundtrip_ok": bool(ok),
+    }
+
+
+def run_suite(workload_names, codecs, n, file_path=None, reps=32) -> dict:
+    """codecs: list of ("torch", TorchCodec) / ("bytes", name, streams, codec)."""
+    from .workloads import make_workload
+
+    results = {}
+    for wname in workload_names:
+        raw = make_workload(wname, n, file_path)
+        rows = []
+        for spec in codecs:
+            if spec[0] == "torch":
+                rows.append(bench_torch_codec(spec[1], raw, reps=reps))
+            else:
+                _, name, streams, codec = spec
+                rows.append(bench_bytes_codec(codec, raw, name, streams))
+        results[wname] = {"bytes": len(raw), "rows": rows}
+    return results

@@ -201,6 +201,10 @@ class TorchCodec:
     def _lanes(self, n: int) -> int:
         return self.k if self.k is not None else default_lanes(n)
 
+    @property
+    def name(self) -> str:
+        return f"Torch<{self.k if self.k is not None else 'auto'}>"
+
     # ---------- device API ----------
 
     def build_tables(self, sample: torch.Tensor, full_alphabet: bool = True) -> dict:

@@ -4,7 +4,8 @@ The HTP3 layer needs four things from it: the ref-profile codec that
 entropy-codes the lane bit counts of a huff-counts blob
 (``hh_compress`` / ``hh_decompress``), the same codec for kind-R
 container records, and the single-pass packers of the compact payload
-(``hp_pack_lane_bits`` / ``hp_unpack_lane_bits``).
+(``hp_pack_lane_bits`` / ``hp_unpack_lane_bits``).  `NativeCodec` offers
+the ref-profile codec as a bytes codec to the benchmark suite.
 
 The library is compiled with g++ into ``build/torch/`` at first use, for
 the host it runs on (no ``-march=native``: the file may be carried to
@@ -82,6 +83,27 @@ def decompress(blob: bytes, k: int, max_size: int) -> bytes:
     if size == ctypes.c_size_t(-1).value:
         raise ValueError("corrupt ref-profile blob")
     return out[:n].tobytes()
+
+
+class NativeCodec:
+    """The ref-profile codec of the host library as a bytes codec
+    (compress / decompress), for the benchmark suite's host rows."""
+
+    #: The largest raw size a blob may claim in `decompress`.
+    max_size = 1 << 31
+
+    def __init__(self, k: int):
+        self.k = k
+
+    @property
+    def name(self) -> str:
+        return f"Native<{self.k}>"
+
+    def compress(self, raw: bytes) -> bytes:
+        return compress(raw, self.k)
+
+    def decompress(self, blob: bytes) -> bytes:
+        return decompress(blob, self.k, self.max_size)
 
 
 def pack_lane_bits(lane_bytes: np.ndarray, bits: np.ndarray) -> bytes:

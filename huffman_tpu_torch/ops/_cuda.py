@@ -23,7 +23,10 @@ from concurrent.futures import ThreadPoolExecutor
 from .._build import BUILD_DIR, build_library
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-KERNELS = ("hist256", "hist256_batch", "table_build", "encode_lanes", "decode_lanes")
+KERNELS = (
+    "hist256", "hist256_batch", "table_build", "encode_lanes", "decode_lanes",
+    "hist256_onehot",
+)
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -43,6 +46,7 @@ _ARGTYPES = {
     "table_build": [_VP, _I32, _VP, _VP],
     "encode_lanes": [_VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP],
     "decode_lanes": [_VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP, _VP],
+    "hist256_onehot": [_VP, _I64, _I32, _VP, _VP],
 }
 
 _lock = threading.Lock()

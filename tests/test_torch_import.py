@@ -15,7 +15,7 @@ import torch
 from huffman_tpu.bench import workloads as jax_workloads
 from huffman_tpu_torch import TorchCodec
 from huffman_tpu_torch.bench import workloads
-from huffman_tpu_torch.ops import _cuda, decode_bits, encode, lookup, table_build
+from huffman_tpu_torch.ops import _cuda, decode_bits, encode, hist_variants, lookup, table_build
 
 torch.set_num_threads(2)
 
@@ -35,6 +35,9 @@ def test_import_leaves_out_jax_and_huffman_tpu():
     r = _run(
         "import sys, huffman_tpu_torch, chip_smoke\n"
         "import huffman_tpu_torch.convert, huffman_tpu_torch.container\n"
+        "import huffman_tpu_torch.bench.harness, huffman_tpu_torch.bench.table\n"
+        "import huffman_tpu_torch.ops.hist_variants\n"
+        "import huffman_tpu_torch.tools.hist_experiments, huffman_tpu_torch.tools.run_benchmarks\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'huffman_tpu')]\n"
         "print('BAD', bad)\n"
         "assert not bad\n"
@@ -119,6 +122,9 @@ CUDA_CALLS = {
         },
         64,
         statics=(1, 4, 0),
+    ),
+    "hist_variant": lambda: hist_variants.hist_variant(
+        _FakeCudaTensor((1 << 19,), torch.uint8), "base"
     ),
 }
 
