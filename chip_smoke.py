@@ -10,7 +10,12 @@ Phases (any failure exits non-zero; no phase failure is caught):
    prints the build time and each kernel's register and shared-memory use.
 3. Kernels: each of hist256, table_build, encode_lanes and decode_lanes
    on the card, at the single-block path's shapes (16 MiB biased block,
-   S = 128, K = 131072), must equal its plain PyTorch version exactly.
+   S = 128, K = 131072), must equal its plain PyTorch version exactly;
+   table_build also on the named tables of ``bench.kernel_cases``, and
+   decode_lanes on every 15-bit window (2^15 lanes, s = 4) of five
+   tables from 0- to 15-bit codes and on the escape-heavy 16 MiB block
+   (the Fibonacci table fed its 20 symbols uniformly), which must also
+   round-trip.
 4. End to end: ``TorchCodec(device="cuda")`` on the 16 MiB biased block:
    encode -> serialize -> deserialize -> decode gives the input back, the
    blob equals the CPU path's blob, the ratio is 2.1626, compress /
@@ -21,7 +26,10 @@ Phases (any failure exits non-zero; no phase failure is caught):
 4b. Batched blocks: 160 blocks of 100 KiB at K = 1024 (S = 100), as
    ``tools/bench_streaming.py`` batches them.  hist256_batch and the
    batched table_build, encode_lanes and decode_lanes must equal their
-   plain versions exactly; then, with the counters zeroed just before,
+   plain versions exactly, and table_build on one launch of 2,001
+   histograms (the sampled one and ``kernel_cases.table_hists``: 0 to
+   256 symbols, ties, repairs, totals near 2^30); then, with the
+   counters zeroed just before,
    ``encode_batch`` -> ``batch_decode_statics`` -> ``decode_batch`` must
    return the 160 blocks and a small batch holding a constant block; the
    batched kernels' counters must be nonzero after.  Blocks 0, 1 and 159
@@ -30,7 +38,8 @@ Phases (any failure exits non-zero; no phase failure is caught):
 5. Times: each kernel's device time per launch (torch.profiler) beside
    its wrapper call and its plain version (CUDA events around
    back-to-back calls), single-block kernels at the 16 MiB block and
-   batched forms at B = 160; compress / decompress GiB/s on the 16 MiB
+   batched forms at B = 160, and decode_lanes on the escape-heavy block;
+   compress / decompress GiB/s on the 16 MiB
    block (the device path with CUDA events after warm-up and its device
    busy time, the bytes API as the median of 5 synchronised host-clock
    calls); and the batched device path at B = 1, 16 and 160 (the same,
@@ -210,7 +219,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device available")
     from huffman_tpu_torch import TorchCodec
-    from huffman_tpu_torch.bench import render_markdown, run_suite, workloads
+    from huffman_tpu_torch.bench import kernel_cases, render_markdown, run_suite, workloads
     from huffman_tpu_torch.bench.harness import bench_torch_codec, card_line, device_busy_ms
     from huffman_tpu_torch.constants import TPU_MAX_CODE_LEN
     from huffman_tpu_torch.ops import _cuda
@@ -278,16 +287,9 @@ def main() -> None:
     if int(hist.sum()) != N // 32 + 256:
         raise AssertionError("sampled histogram does not count 1/32 of the block + 256")
 
-    fib = [1, 1]
-    while len(fib) < 20:
-        fib.append(fib[-1] + fib[-2])
-    hists = {
-        "sampled": hist,
-        "fibonacci": torch.tensor(fib[::-1] + [0] * 236, dtype=torch.int32),
-        "single": torch.tensor([0] * 65 + [1000] + [0] * 190, dtype=torch.int32),
-        "equal": torch.full((256,), 17, dtype=torch.int32),
-        "empty": torch.zeros(256, dtype=torch.int32),
-    }
+    hists = {"sampled": hist}
+    for name, h in kernel_cases.fixed_hists().items():
+        hists[name] = torch.from_numpy(h.astype(np.int32))
     err["table_build"] = 0
     for name, h in hists.items():
         h = h.to(dev)
@@ -308,9 +310,32 @@ def main() -> None:
     out = decode_lanes(words, eb, gr, sy, s)
     err["decode_lanes"] = expect_equal("decode", out, decode_lanes_plain(words, eb, gr, sy, s))
     expect_equal("decode vs input", out.reshape(-1), data)
+    # Every 15-bit window as the first of 4 symbols, random bits after it,
+    # through five tables from 0- to 15-bit codes.
+    xwords = torch.from_numpy(kernel_cases.window_words()).to(dev)
+    xk = xwords.shape[1]
+    for name, h in kernel_cases.decode_hists(hist.cpu().numpy()).items():
+        t = build_coding_device(torch.from_numpy(h.astype(np.int32)).to(dev))
+        xt = (t["e_bound"], t["g_rank"], t["sorted_syms"])
+        err["decode_lanes"] = max(err["decode_lanes"], expect_equal(
+            f"decode every window, {name} table",
+            decode_lanes(xwords, *xt, 4), decode_lanes_plain(xwords, *xt, 4)))
+    # The escape-heavy block: the Fibonacci table fed its 20 symbols
+    # uniformly; 9 of them have codes longer than the decode's lookup.
+    esc = torch.from_numpy(kernel_cases.escape_block(N)).to(dev)
+    fib_hist = torch.from_numpy(kernel_cases.fibonacci_hist().astype(np.int32))
+    etab = build_coding_device(fib_hist.to(dev))
+    ewords, _ = encode_lanes(esc, etab["enc_table"], s, K, w32)
+    et = (etab["e_bound"], etab["g_rank"], etab["sorted_syms"])
+    eout = decode_lanes(ewords, *et, s)
+    err["decode_lanes"] = max(err["decode_lanes"], expect_equal(
+        "decode escape-heavy", eout, decode_lanes_plain(ewords, *et, s)))
+    expect_equal("escape-heavy round trip", eout.reshape(-1), esc)
     torch.cuda.synchronize()
     print("kernels: all four single-block kernels equal their plain versions at "
-          "S=128, K=131072", flush=True)
+          "S=128, K=131072; decode_lanes equals its plain version on every 15-bit "
+          f"window ({xk} lanes, s=4) of the sampled, Fibonacci, 1-bit, 8-bit and "
+          "single-symbol tables, and round-trips the escape-heavy 16 MiB block", flush=True)
 
     # 4. End to end on the card; the launch counters cover this phase only.
     codec = TorchCodec(device=dev)
@@ -368,6 +393,10 @@ def main() -> None:
         err["table_build"],
         expect_equal("table_build batched", bflat, build_coding_plain_batch(bhist)),
     )
+    gen = torch.from_numpy(np.concatenate([hist.cpu().numpy()[None], kernel_cases.table_hists()]))
+    err["table_build"] = max(err["table_build"], expect_equal(
+        f"table_build generated batch of {gen.shape[0]}",
+        build_coding_flat_batch(gen.to(dev)), build_coding_plain_batch(gen).to(dev)))
     btab = _unpack(bflat, BATCH)
     benc = btab["enc_table"]
     bwords, bbits = encode_lanes_batch(blocks, benc, bs, BK, bw32)
@@ -387,7 +416,9 @@ def main() -> None:
     expect_equal("batched decode vs input", bout.reshape(BATCH, NB), blocks)
     torch.cuda.synchronize()
     print(f"kernels: hist256_batch and the batched table_build, encode_lanes and "
-          f"decode_lanes equal their plain versions at B={BATCH}, S={bs}, K={BK}", flush=True)
+          f"decode_lanes equal their plain versions at B={BATCH}, S={bs}, K={BK}; "
+          f"table_build equals its plain version on {gen.shape[0]} generated "
+          "histograms in one launch", flush=True)
 
     const_np = np.stack([
         np.full(NB, ord("a"), np.uint8),
@@ -498,6 +529,8 @@ def main() -> None:
     for name, (kern, _, _) in batched.items():
         print(f"time {name} B={BATCH}: kernel {kernel_ms(kern, name):.6f} ms device, "
               f"call {bcall_ms[name]:.6f} ms, plain {bplain_ms[name]:.6f} ms")
+    print(f"time decode_lanes escape-heavy 16 MiB: kernel "
+          f"{kernel_ms(lambda: decode_lanes(ewords, *et, s), 'decode_lanes'):.6f} ms device")
     print(f"time torch.bincount of hist256's 512 KiB sample: call {library_ms['hist256']:.6f} ms")
     full_ms = {}
     for key, (kern, _, _) in full.items():

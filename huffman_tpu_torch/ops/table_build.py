@@ -127,7 +127,9 @@ def build_coding_plain(hist: torch.Tensor) -> torch.Tensor:
     cd = [cnt[s] for s in syms]
     n = sum(1 for v in cnt if v > 0)
 
-    # Moffat-Katajainen in place (see csrc/table_build.cu for the steps).
+    # Moffat-Katajainen in place: a[0:n] holds the weights ascending,
+    # internal node i goes to a[i], and a consumed node's slot is
+    # overwritten by its parent's index, then by its depth.
     n_int = max(n - 1, 0)
     a = [cd[max(n - 1 - i, 0)] if i < n else _BIG for i in range(_N)]
     leaf = root = 0
