@@ -15,7 +15,11 @@ Phases (any failure exits non-zero; no phase failure is caught):
    decode_lanes on every 15-bit window (2^15 lanes, s = 4) of five
    tables from 0- to 15-bit codes and on the escape-heavy 16 MiB block
    (the Fibonacci table fed its 20 symbols uniformly), which must also
-   round-trip.
+   round-trip; encode_lanes on ``kernel_cases.encode_cases``, which
+   reach every path of the kernel (the lane-skewed and escape-heavy
+   16 MiB blocks, K = 8 with S = 4096, K = 24, and offset views at
+   K = 1001 and at 16 MiB), and hist256's sampled and full counts of those and of a
+   constant and a uniform 16 MiB block.
 4. End to end: ``TorchCodec(device="cuda")`` on the 16 MiB biased block:
    encode -> serialize -> deserialize -> decode gives the input back, the
    blob equals the CPU path's blob, the ratio is 2.1626, compress /
@@ -28,8 +32,9 @@ Phases (any failure exits non-zero; no phase failure is caught):
    batched table_build, encode_lanes and decode_lanes must equal their
    plain versions exactly, and table_build on one launch of 2,001
    histograms (the sampled one and ``kernel_cases.table_hists``: 0 to
-   256 symbols, ties, repairs, totals near 2^30); then, with the
-   counters zeroed just before,
+   256 symbols, ties, repairs, totals near 2^30), and the batched
+   encode_lanes on batches of three of each of phase 3's encode inputs;
+   then, with the counters zeroed just before,
    ``encode_batch`` -> ``batch_decode_statics`` -> ``decode_batch`` must
    return the 160 blocks and a small batch holding a constant block; the
    batched kernels' counters must be nonzero after.  Blocks 0, 1 and 159
@@ -38,10 +43,13 @@ Phases (any failure exits non-zero; no phase failure is caught):
 5. Times: each kernel's device time per launch (torch.profiler) beside
    its wrapper call and its plain version (CUDA events around
    back-to-back calls), single-block kernels at the 16 MiB block and
-   batched forms at B = 160, and decode_lanes on the escape-heavy block;
-   compress / decompress GiB/s on the 16 MiB
+   batched forms at B = 160, decode_lanes and encode_lanes on the
+   escape-heavy block, and encode_lanes on a 16 MiB view 3 bytes past
+   16-byte alignment beside the same bytes aligned, with the device
+   operations of ``encode_device`` on that view; compress / decompress GiB/s on the 16 MiB
    block (the device path with CUDA events after warm-up and its device
-   busy time, the bytes API as the median of 5 synchronised host-clock
+   busy time, each device operation of one ``encode_device`` call by
+   name, the bytes API as the median of 5 synchronised host-clock
    calls); and the batched device path at B = 1, 16 and 160 (the same,
    decode with statics precomputed).  Also hist256's full count of the
    16 MiB block, and hist256_onehot in each MMA type on it, each beside
@@ -220,7 +228,12 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device available")
     from huffman_tpu_torch import TorchCodec
     from huffman_tpu_torch.bench import kernel_cases, render_markdown, run_suite, workloads
-    from huffman_tpu_torch.bench.harness import bench_torch_codec, card_line, device_busy_ms
+    from huffman_tpu_torch.bench.harness import (
+        bench_torch_codec,
+        card_line,
+        device_busy_ms,
+        device_ops,
+    )
     from huffman_tpu_torch.constants import TPU_MAX_CODE_LEN
     from huffman_tpu_torch.ops import _cuda
     from huffman_tpu_torch.ops.hist_variants import (
@@ -325,17 +338,47 @@ def main() -> None:
     esc = torch.from_numpy(kernel_cases.escape_block(N)).to(dev)
     fib_hist = torch.from_numpy(kernel_cases.fibonacci_hist().astype(np.int32))
     etab = build_coding_device(fib_hist.to(dev))
-    ewords, _ = encode_lanes(esc, etab["enc_table"], s, K, w32)
+    ewords, ebits = encode_lanes(esc, etab["enc_table"], s, K, w32)
     et = (etab["e_bound"], etab["g_rank"], etab["sorted_syms"])
     eout = decode_lanes(ewords, *et, s)
     err["decode_lanes"] = max(err["decode_lanes"], expect_equal(
         "decode escape-heavy", eout, decode_lanes_plain(ewords, *et, s)))
     expect_equal("escape-heavy round trip", eout.reshape(-1), esc)
+    # The encode's hard inputs (kernel_cases.encode_cases, the escape-heavy
+    # block among them), each through every path of the kernel, and their
+    # sampled and full counts beside a constant and a uniform block.
+    hard, counted = {}, {}
+    for name, c in kernel_cases.encode_cases().items():
+        cs, ck, off = c["s"], c["k"], c["offset"]
+        cw32 = (cs * TPU_MAX_CODE_LEN + 31) // 32 + 1
+        x = torch.from_numpy(c["data"]).to(dev)[off:]
+        ctab = build_coding_device(torch.from_numpy(c["hist"].astype(np.int32)).to(dev))
+        hard[name] = (x, ctab["enc_table"], cs, ck, cw32, off)
+        got = encode_lanes(x, ctab["enc_table"], cs, ck, cw32)
+        want = encode_lanes_plain(x, ctab["enc_table"], cs, ck, cw32)
+        err["encode_lanes"] = max(
+            err["encode_lanes"],
+            expect_equal(f"encode words, {name}", got[0], want[0]),
+            expect_equal(f"encode bits, {name}", got[1], want[1]),
+        )
+        counted[name] = x
+    for name, blk in kernel_cases.hist_blocks(N).items():
+        counted[name] = torch.from_numpy(blk).to(dev)
+    for name, x in counted.items():
+        for stride in (32, 1):
+            err["hist256"] = max(err["hist256"], expect_equal(
+                f"hist256 stride {stride}, {name}", table_hist(x, stride),
+                table_hist_plain(x, stride)))
+    if int(table_hist(counted["constant"], 1)[0xA5]) != N:
+        raise AssertionError("hist256: the constant block's bin is not n")
     torch.cuda.synchronize()
     print("kernels: all four single-block kernels equal their plain versions at "
           "S=128, K=131072; decode_lanes equals its plain version on every 15-bit "
           f"window ({xk} lanes, s=4) of the sampled, Fibonacci, 1-bit, 8-bit and "
-          "single-symbol tables, and round-trips the escape-heavy 16 MiB block", flush=True)
+          "single-symbol tables, and round-trips the escape-heavy 16 MiB block; "
+          f"encode_lanes equals its plain version on {', '.join(hard)}; hist256's "
+          f"sampled and full counts equal the plain version's on those and on "
+          f"{', '.join(kernel_cases.hist_blocks(0))} 16 MiB blocks", flush=True)
 
     # 4. End to end on the card; the launch counters cover this phase only.
     codec = TorchCodec(device=dev)
@@ -414,11 +457,27 @@ def main() -> None:
         expect_equal("decode batched", bout, decode_lanes_batch_plain(bwords, beb, bgr, bsy, bs, bw)),
     )
     expect_equal("batched decode vs input", bout.reshape(BATCH, NB), blocks)
+    # The encode's hard inputs as batches of three blocks (the block, its
+    # reverse and its rotation by one), offset as the single block is.
+    for name, (x, ctab, cs, ck, cw32, off) in hard.items():
+        buf = torch.empty(3 * x.numel() + off, dtype=torch.uint8, device=dev)
+        buf[off:] = torch.cat([x, x.flip(0), x.roll(1)])
+        three = buf[off:].view(3, -1)
+        tabs = ctab.expand(3, 256).contiguous()
+        got = encode_lanes_batch(three, tabs, cs, ck, cw32)
+        want = encode_lanes_batch_plain(three, tabs, cs, ck, cw32)
+        err["encode_lanes"] = max(
+            err["encode_lanes"],
+            expect_equal(f"encode words batched, {name}", got[0], want[0]),
+            expect_equal(f"encode bits batched, {name}", got[1], want[1]),
+        )
+    del buf, three
     torch.cuda.synchronize()
     print(f"kernels: hist256_batch and the batched table_build, encode_lanes and "
           f"decode_lanes equal their plain versions at B={BATCH}, S={bs}, K={BK}; "
           f"table_build equals its plain version on {gen.shape[0]} generated "
-          "histograms in one launch", flush=True)
+          "histograms in one launch; the batched encode_lanes on batches of three of "
+          f"each of {', '.join(hard)}", flush=True)
 
     const_np = np.stack([
         np.full(NB, ord("a"), np.uint8),
@@ -531,6 +590,23 @@ def main() -> None:
               f"call {bcall_ms[name]:.6f} ms, plain {bplain_ms[name]:.6f} ms")
     print(f"time decode_lanes escape-heavy 16 MiB: kernel "
           f"{kernel_ms(lambda: decode_lanes(ewords, *et, s), 'decode_lanes'):.6f} ms device")
+    eenc = etab["enc_table"]
+    print(f"time encode_lanes escape-heavy 16 MiB: kernel "
+          f"{kernel_ms(lambda: encode_lanes(esc, eenc, s, K, w32), 'encode_lanes'):.6f} ms device")
+    # A 16 MiB block of whole rows at an address 3 bytes past 16: the
+    # kernel stages it from unaligned chunks, and encode_device copies it
+    # no more than an aligned block.
+    ox, oenc, o_s, o_k, ow32, _ = hard["offset view, 16 MiB"]
+    oal = ox.clone()
+    o_ms = kernel_ms(lambda: encode_lanes(ox, oenc, o_s, o_k, ow32), "encode_lanes")
+    a_ms = kernel_ms(lambda: encode_lanes(oal, oenc, o_s, o_k, ow32), "encode_lanes")
+    print(f"time encode_lanes 16 MiB offset by 3 bytes: kernel {o_ms:.6f} ms device, "
+          f"the same bytes aligned {a_ms:.6f} ms")
+    expect_equal("encode_device offset view", codec.encode_device(ox).words,
+                 codec.encode_device(oal).words)
+    for name, count, op_ms in device_ops(lambda: codec.encode_device(ox)):
+        print(f"encode_device 16 MiB offset view device operation: {name} x{count:g} "
+              f"{op_ms:.6f} ms")
     print(f"time torch.bincount of hist256's 512 KiB sample: call {library_ms['hist256']:.6f} ms")
     full_ms = {}
     for key, (kern, _, _) in full.items():
@@ -550,6 +626,8 @@ def main() -> None:
         print(f"{key}: encode {e_ms:.6f} ms = {gib / (e_ms / 1e3):.4f} GiB/s "
               f"(device busy {device_busy_ms(enc_fn):.6f} ms), decode {dd_ms:.6f} ms = "
               f"{gib / (dd_ms / 1e3):.4f} GiB/s (device busy {device_busy_ms(dec_fn):.6f} ms)")
+    for name, count, op_ms in device_ops(lambda: codec.encode_device(data)):
+        print(f"encode_device 16 MiB device operation: {name} x{count:g} {op_ms:.6f} ms")
     gib = N / (1 << 30)
     print(f"bytes API (median of 5, host clock): compress {c_ms:.3f} ms = "
           f"{gib / (c_ms / 1e3):.4f} GiB/s, decompress {d_ms:.3f} ms = "

@@ -109,11 +109,14 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def device_busy_ms(fn, reps: int = 20) -> float:
-    """Mean device-busy milliseconds (kernels, memsets, copies) per call
-    of ``fn()``, from the profiler's device trace.  Once the profiler has
-    run, CUDA launches of the process cost the host more, so take event
-    and graph timings first."""
+def device_ops(fn, reps: int = 20) -> list[tuple[str, float, float]]:
+    """(name, count a call, device ms a call) of every device operation
+    (kernel, memset, copy) in the profiler's trace of ``reps`` calls of
+    ``fn()``.  Host operations are left out: an aten op that launched a
+    kernel carries that kernel's time as its own as well.  Once the
+    profiler has run, CUDA launches of the process cost the host more, so
+    take event and graph timings first."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -122,7 +125,14 @@ def device_busy_ms(fn, reps: int = 20) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / reps / 1e3
+    return [(e.key, e.count / reps, e.self_device_time_total / reps / 1e3)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def device_busy_ms(fn, reps: int = 20) -> float:
+    """Mean device-busy milliseconds (kernels, memsets, copies) per call
+    of ``fn()``: the sum of `device_ops`."""
+    return sum(ms for _, _, ms in device_ops(fn, reps))
 
 
 def wall_seconds(fn, min_time: float = 0.3) -> float:

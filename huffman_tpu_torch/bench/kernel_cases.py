@@ -1,5 +1,5 @@
-"""Inputs that hold the table and decode kernels to their plain versions
-where they are hardest to get right.
+"""Inputs that hold the table, decode, encode and histogram kernels to
+their plain versions where they are hardest to get right.
 
 ``chip_smoke.py`` runs them through the CUDA kernels on the card; the
 CPU tests run them through the plain versions and the JAX package.
@@ -9,6 +9,8 @@ Every generator is numpy only and made from a seed.
 from __future__ import annotations
 
 import numpy as np
+
+from .workloads import biased_u8
 
 N_SYMBOLS = 256
 WINDOW_BITS = 15  # TPU_MAX_CODE_LEN: a decode window
@@ -113,3 +115,61 @@ def escape_block(n: int, seed: int = 0) -> np.ndarray:
     them have codes longer than 11 bits (the decode's escapes), which
     carry most of the bits."""
     return np.random.default_rng(seed).integers(0, 20, n).astype(np.uint8)
+
+
+def lane_skewed_block(s: int, k: int, seed: int = 0) -> np.ndarray:
+    """(s*k,) uint8 for the `fibonacci_hist` table, byte i in lane i % k:
+    odd lanes take one of its 15-bit codes (symbols 12-19) with a chance
+    from 0 to 1 that steps with the lane, even lanes only its 1-bit code
+    (symbol 0), so the lanes of one warp reach a word row far apart."""
+    rng = np.random.default_rng(seed)
+    lane = np.arange(k)
+    p_long = (lane % 2) * ((lane // 2) % 16) / 15
+    long_code = rng.random((s, k)) < p_long
+    return np.where(long_code, rng.integers(12, 20, (s, k)), 0).astype(np.uint8).reshape(-1)
+
+
+def encode_cases(small: bool = False, seed: int = 0) -> dict[str, dict]:
+    """The encode's hard inputs: name -> {"data": (offset + s*k,) uint8,
+    "offset": bytes before the block (the block is ``data[offset:]``, an
+    unaligned view where offset > 0), "s", "k", "hist": (256,) counts
+    whose table encodes it}.  ``small`` gives the CPU tests' sizes; the
+    other sizes reach each path of the CUDA kernel: the lane-skewed and
+    escape-heavy blocks at the 16 MiB block's shape (tiles of 16-byte
+    copies and stores), the same shape offset by 3 bytes (every row
+    staged from unaligned chunks), K = 8 with S = 4096 (lanes too long
+    for a tile), K = 24 with an odd S (one partial tile, rows of shifting
+    alignment, a last stage of odd rows), and an offset view at K = 1001
+    (4-byte stores)."""
+    fib = fibonacci_hist()
+    shapes = {  # name -> (s, k, offset), card / small
+        "lane-skewed": ((128, 131072, 0), (40, 64, 0)),
+        "escape-heavy": ((128, 131072, 0), (32, 64, 0)),
+        "K=8, long S": ((4096, 8, 0), (1200, 8, 0)),
+        "K=24": ((201, 24, 0), (51, 24, 0)),
+        "offset view, K=1001": ((100, 1001, 1), (9, 101, 1)),
+        "offset view, 16 MiB": ((128, 131072, 3), (16, 64, 3)),
+    }
+    out = {}
+    for i, (name, sizes) in enumerate(shapes.items()):
+        s, k, offset = sizes[small]
+        if name == "lane-skewed":
+            block, hist = lane_skewed_block(s, k, seed + i), fib
+        elif name == "escape-heavy":
+            block, hist = escape_block(s * k, seed + i), fib
+        else:
+            block = biased_u8(s * k, seed + i)
+            hist = np.bincount(block, minlength=N_SYMBOLS) + 1
+        data = np.concatenate([np.zeros(offset, np.uint8), block])
+        out[name] = {"data": data, "offset": offset, "s": s, "k": k,
+                     "hist": np.asarray(hist, np.int64)}
+    return out
+
+
+def hist_blocks(n: int, seed: int = 0) -> dict[str, np.ndarray]:
+    """Blocks for the histogram beside the encode's: every byte one value
+    (one bin takes all n) and uniform bytes."""
+    return {
+        "constant": np.full(n, 0xA5, np.uint8),
+        "uniform": np.random.default_rng(seed).integers(0, N_SYMBOLS, n, dtype=np.uint8),
+    }

@@ -232,7 +232,8 @@ class TorchCodec:
             )
         s = -(-n // k)
         w32 = (s * MAX_CODE_LEN + 31) // 32 + 1
-        padded = torch.nn.functional.pad(data, (0, s * k - n))
+        # A zero-width pad still copies the block: pad only a partial row.
+        padded = data if s * k == n else torch.nn.functional.pad(data, (0, s * k - n))
         if tables is None:
             tables = build_coding_device(table_hist(padded, self._hist_stride(n)))
         words, bit_counts = encode_lanes(padded, tables["enc_table"], s, k, w32)

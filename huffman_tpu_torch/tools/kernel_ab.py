@@ -1,26 +1,35 @@
-"""A/B of the table and decode kernels against another version of their
+"""A/B of the port's redesigned kernels against another version of their
 sources, in turns on one card, with the table kernel's step times and a
-split of the decode kernel's time.
+split and a constant sweep of the decode and encode kernels.
 
 Usage:
   python3 -m huffman_tpu_torch.tools.kernel_ab --parent DIR [--out PATH]
+      [--kernels NAME ...]
 
-DIR holds the other version's ``table_build.cu`` and ``decode_lanes.cu``,
-for example the parent commit's ``huffman_tpu_torch/csrc`` unpacked by
-``git archive`` into a gitignored directory such as ``checkout/``; such a
-copy is not committed.  Both versions are built with the nvcc flags of
-``ops._cuda`` into ``build/kernel_ab/`` and called through the same C
-entry points on the same inputs, made on the card from seeds:
+DIR holds the other version's ``table_build.cu``, ``decode_lanes.cu``,
+``encode_lanes.cu`` and ``hist256.cu``, for example the parent commit's
+``huffman_tpu_torch/csrc`` unpacked by ``git archive`` into a gitignored
+directory such as ``checkout/``; such a copy is not committed.  Both
+versions are built with the nvcc flags of ``ops._cuda`` into
+``build/kernel_ab/`` (every build of the run at once) and called through
+the same C entry points on the same inputs, made on the card from seeds:
 
   table_build   the 16 MiB biased block's sampled histogram (B = 1) and
                 the 160 x 100 KiB batch's histograms (B = 160)
   decode_lanes  the 16 MiB block (S = 128, K = 131072), the batch
                 (S = 100, K = 1024), and the escape-heavy 16 MiB block
                 (``bench.kernel_cases.escape_block``)
+  encode_lanes  the same three blocks, the escape-heavy one through the
+                Fibonacci table, whose long codes nearly fill every
+                lane's words, and the 16 MiB block at an address 3 bytes
+                past 16-byte alignment
+  hist256       the 16 MiB biased block's sampled and full counts, and
+                the full count of a 1 MiB block
 
-Both versions must equal the plain versions on every case.  Then each
-case is timed in two rounds of parent, change, change, parent: device
-milliseconds per launch from the profiler (mean of 50).  After them:
+``--kernels`` limits the run to some of them.  Both versions must equal
+the plain versions on every case.  Then each case is timed in two rounds
+of parent, change, change, parent: device milliseconds per launch from
+the profiler (mean of 50).  After them:
 
   phases  table_build of each version with a ``clock64()`` stamp, taken
           by thread 0 of each block, before every comment line indented
@@ -28,14 +37,13 @@ milliseconds per launch from the profiler (mean of 50).  After them:
           steps): cycles per step, mean over blocks, median of 20
           launches.  The stamped copies are made and built here; they
           are not sources of the repository.
-  split   the current decode_lanes with its table lookup replaced by a
-          fixed 4-bit length, with every lane of a warp reading the same
-          entry (no bank conflicts), and with the escape branch removed:
-          device ms of each beside the kernel's.  Their outputs are wrong
-          by design and are not checked.
-  sweep   the current decode_lanes with one of its constants changed
-          (`SWEEP`: threads a block, words loaded ahead, table bits):
-          device ms of each, checked against the plain version.
+  split   the current decode_lanes and encode_lanes, each with one line
+          replaced per entry of `SPLIT` / `ENCODE_SPLIT`: device ms of
+          each beside the kernel's.  Their outputs are wrong by design
+          and are not checked.
+  sweep   the current decode_lanes and encode_lanes with one of their
+          constants changed (`SWEEP` / `ENCODE_SWEEP`): device ms of each,
+          checked against the plain version.
 
 Prints one line per measurement and the card's name and power limit;
 ``--out`` also writes them as JSON.
@@ -49,6 +57,7 @@ import json
 import os
 import re
 import statistics
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -59,8 +68,8 @@ from ..bench.harness import card_line, device_busy_ms
 from ..constants import TPU_MAX_CODE_LEN as L
 from ..ops import _cuda
 from ..ops.decode_bits import decode_lanes_batch_plain
-from ..ops.encode import encode_lanes, encode_lanes_batch
-from ..ops.lookup import histogram256_batch, table_hist
+from ..ops.encode import encode_lanes, encode_lanes_batch, encode_lanes_batch_plain
+from ..ops.lookup import _geometry, histogram256_batch, table_hist, table_hist_plain
 from ..ops.table_build import (
     TABLE_LEN,
     _unpack,
@@ -69,7 +78,7 @@ from ..ops.table_build import (
     build_coding_plain_batch,
 )
 
-KERNELS = ("table_build", "decode_lanes")
+KERNELS = ("table_build", "decode_lanes", "encode_lanes", "hist256")
 ORDER = ("parent", "change", "change", "parent")
 ROUNDS = 2
 N, K = 16 << 20, 131072  # the single-block path's block and lanes
@@ -87,9 +96,24 @@ SPLIT = {
     "no escape branch": (ESCAPE, "      if (false) {"),
 }
 
-
 # Constants of decode_lanes.cu that the sweep sets to other values.
 SWEEP = {"kThreads": (256, 1024), "kAhead": (1, 4), "kLut": (10, 12)}
+
+# Lines of encode_lanes.cu that its split replaces.
+STORE = "        *reinterpret_cast<uint4*>(words + static_cast<size_t>(row) * k + c) = v;"
+COPY = "      if (c < m + width) cp_async16(dst + r * pitch - m + c, row - m + c);"
+ENCODE_LOOKUP = "        for (int j = 0; j < kGroupRows; ++j) e[j] = tab[e[j]];"
+VEC_OUT = "  const bool vec_out = k % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;"
+ENCODE_SPLIT = {
+    "no word stores, only the bit counts": (STORE, "        (void)v;"),
+    "no byte copies, the stages left as they are": (COPY, "      (void)dst, (void)row;"),
+    "a fixed 4-bit code in place of the table lookup": (
+        ENCODE_LOOKUP, "        for (int j = 0; j < kGroupRows; ++j) e[j] = (e[j] & 15) << 4 | 4;"),
+    "4-byte word stores": (VEC_OUT, "  const bool vec_out = false;"),
+}
+
+# Constants of encode_lanes.cu that its sweep sets to other values.
+ENCODE_SWEEP = {"kTileLanes": (64, 256), "kStageRows": (16, 64), "kGroupRows": (8, 32)}
 
 
 def _kernel_body(src: str, name: str) -> tuple[int, int]:
@@ -141,45 +165,60 @@ def stamp_phases(src: str, name: str = "table_build") -> tuple[str, list[str]]:
     return text, labels
 
 
-def split_variants(src: str) -> dict[str, str]:
-    """The decode kernel's source with one line replaced per `SPLIT` entry."""
+def split_variants(src: str, split: dict = SPLIT) -> dict[str, str]:
+    """The kernel's source with one line replaced per entry of ``split``
+    (label -> (line, replacement)); the decode kernel's by default."""
     out = {}
-    for label, (old, new) in SPLIT.items():
+    for label, (old, new) in split.items():
         if src.count(old) != 1:
-            raise ValueError(f"decode_lanes.cu no longer has the line {old.strip()!r}")
+            raise ValueError(f"the source no longer has the line {old.strip()!r} once")
         out[label] = src.replace(old, new)
     return out
 
 
-def sweep_variants(src: str) -> dict[str, str]:
-    """The decode kernel's source with one `SWEEP` constant changed."""
+def sweep_variants(src: str, sweep: dict = SWEEP) -> dict[str, str]:
+    """The kernel's source with one constant of ``sweep`` (name -> values)
+    changed per variant; the decode kernel's by default."""
     out = {}
-    for name, values in SWEEP.items():
+    for name, values in sweep.items():
         pattern = rf"constexpr int {name} = \d+;"
         if len(re.findall(pattern, src)) != 1:
-            raise ValueError(f"decode_lanes.cu no longer defines {name} once")
+            raise ValueError(f"the source no longer defines {name} once")
         for v in values:
             out[f"{name}={v}"] = re.sub(pattern, f"constexpr int {name} = {v};", src)
     return out
 
 
-def _build(name: str, tag: str, text: str):
-    """The C entry ``<name>_launch`` of ``text`` compiled as ops._cuda
-    compiles ``name``, and the library."""
+def _build_all(jobs: dict) -> dict:
+    """tag -> (C entry ``<name>_launch``, library) for jobs (tag -> (name,
+    source text)), compiled at once as ops._cuda compiles ``name``."""
     out_dir = os.path.join(BUILD_DIR, "kernel_ab")
     os.makedirs(out_dir, exist_ok=True)
-    path = os.path.join(out_dir, f"{tag}_{name}.cu")
-    with open(path, "w") as f:
-        f.write(text)
-    built, _ = build_library(f"{tag}_{name}", _cuda._nvcc(), _cuda._FLAGS, [path], out_dir)
-    lib = ctypes.CDLL(built)
-    fn = getattr(lib, f"{name}_launch")
-    fn.argtypes = _cuda._ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    return fn, lib
+
+    def build(item):
+        tag, (name, text) = item
+        path = os.path.join(out_dir, f"{tag}_{name}.cu")
+        with open(path, "w") as f:
+            f.write(text)
+        return build_library(f"{tag}_{name}", _cuda._nvcc(), _cuda._FLAGS, [path], out_dir)[0]
+
+    with ThreadPoolExecutor(min(16, len(jobs))) as pool:
+        paths = dict(zip(jobs, pool.map(build, jobs.items())))
+    fns = {}
+    for tag, (name, _) in jobs.items():
+        lib = ctypes.CDLL(paths[tag])
+        fn = getattr(lib, f"{name}_launch")
+        fn.argtypes = _cuda._ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        fns[tag] = (fn, lib)
+    return fns
 
 
-def _cases(dev) -> dict:
+def _tag(*parts: str) -> str:
+    return "_".join(re.sub(r"\W+", "_", p) for p in parts)
+
+
+def _cases(dev, kernels) -> dict:
     """name -> (kernel, launch(fn), plain output): each case's inputs."""
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
     cases = {}
@@ -207,6 +246,31 @@ def _cases(dev) -> dict:
 
         return "decode_lanes", run, decode_lanes_batch_plain(words, eb, gr, sy, s, w)
 
+    def encode_case(blocks, enc, s, k):
+        bcount = blocks.shape[0]
+        w32 = (s * L + 31) // 32 + 1
+        out = torch.empty(bcount * (w32 + 1) * k, dtype=torch.int32, device=dev)
+        words, bits = out[: bcount * w32 * k], out[bcount * w32 * k:]
+
+        def run(fn):
+            _check(fn(blocks.data_ptr(), enc.data_ptr(), bcount, s, k, w32, words.data_ptr(),
+                      bits.data_ptr(), stream()))
+            return out
+
+        pw, pb = encode_lanes_batch_plain(blocks, enc, s, k, w32)
+        return "encode_lanes", run, torch.cat([pw.reshape(-1), pb.reshape(-1)])
+
+    def hist_case(data, stride):
+        rows, row_len, pitch, last_len, bias = _geometry(data.shape[0], stride)
+        out = torch.empty(256, dtype=torch.int32, device=dev)
+
+        def run(fn):
+            _check(fn(data.data_ptr(), rows, row_len, pitch, last_len, bias, out.data_ptr(),
+                      stream()))
+            return out
+
+        return "hist256", run, table_hist_plain(data, stride)
+
     s, w32 = N // K, (N // K * L + 31) // 32 + 1
     data = torch.from_numpy(workloads.biased_u8(N, 0)).to(dev)
     hist = table_hist(data, 32)
@@ -223,12 +287,29 @@ def _cases(dev) -> dict:
         torch.from_numpy(kernel_cases.fibonacci_hist().astype(np.int32)).to(dev))
     ewords, _ = encode_lanes(esc, etab["enc_table"], s, K, w32)
 
-    cases["table_build 16 MiB"] = table_case(hist.view(1, -1))
-    cases[f"table_build B={BATCH}"] = table_case(bhist)
-    cases["decode_lanes 16 MiB"] = decode_case(words.view(1, w32, K), tables, s, w32)
-    cases[f"decode_lanes B={BATCH}"] = decode_case(
-        bwords, btab, bs, int((bbits.max() + 31) // 32))
-    cases["decode_lanes escape-heavy 16 MiB"] = decode_case(ewords.view(1, w32, K), etab, s, w32)
+    if "table_build" in kernels:
+        cases["table_build 16 MiB"] = table_case(hist.view(1, -1))
+        cases[f"table_build B={BATCH}"] = table_case(bhist)
+    if "decode_lanes" in kernels:
+        cases["decode_lanes 16 MiB"] = decode_case(words.view(1, w32, K), tables, s, w32)
+        cases[f"decode_lanes B={BATCH}"] = decode_case(
+            bwords, btab, bs, int((bbits.max() + 31) // 32))
+        cases["decode_lanes escape-heavy 16 MiB"] = decode_case(
+            ewords.view(1, w32, K), etab, s, w32)
+    if "encode_lanes" in kernels:
+        cases["encode_lanes 16 MiB"] = encode_case(
+            data.view(1, -1), tables["enc_table"].view(1, -1), s, K)
+        cases[f"encode_lanes B={BATCH}"] = encode_case(blocks, btab["enc_table"], bs, BK)
+        cases["encode_lanes escape-heavy 16 MiB"] = encode_case(
+            esc.view(1, -1), etab["enc_table"].view(1, -1), s, K)
+        shifted = torch.empty(N + 3, dtype=torch.uint8, device=dev)
+        shifted[3:] = data
+        cases["encode_lanes offset view 16 MiB"] = encode_case(
+            shifted[3:].view(1, -1), tables["enc_table"].view(1, -1), s, K)
+    if "hist256" in kernels:
+        cases["hist256 sampled 16 MiB"] = hist_case(data, 32)
+        cases["hist256 full 16 MiB"] = hist_case(data, 1)
+        cases["hist256 full 1 MiB"] = hist_case(data[: 1 << 20], 1)
     return cases
 
 
@@ -270,18 +351,42 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, help="directory of the other version's sources")
     ap.add_argument("--out", type=str, default=None)
+    ap.add_argument("--kernels", nargs="+", choices=KERNELS, default=list(KERNELS))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
     dev = torch.device("cuda")
+    kernels = [n for n in KERNELS if n in args.kernels]
     card = card_line()
     print(f"card: {card}", flush=True)
     sources = {
-        "parent": {n: _read(os.path.join(args.parent, f"{n}.cu")) for n in KERNELS},
-        "change": {n: _read(os.path.join(_cuda._CSRC, f"{n}.cu")) for n in KERNELS},
+        "parent": {n: _read(os.path.join(args.parent, f"{n}.cu")) for n in kernels},
+        "change": {n: _read(os.path.join(_cuda._CSRC, f"{n}.cu")) for n in kernels},
     }
-    fns = {v: {n: _build(n, v, sources[v][n])[0] for n in KERNELS} for v in sources}
-    cases = _cases(dev)
+    # Every build of the run: both versions, the stamped table builds, and
+    # the split and sweep variants of the current decode and encode.
+    jobs = {_tag(v, n): (n, sources[v][n]) for v in sources for n in kernels}
+    labels = {}
+    if "table_build" in kernels:
+        for version in sources:
+            text, labels[version] = stamp_phases(sources[version]["table_build"])
+            jobs[_tag(version, "phases")] = ("table_build", text)
+    variants = {}  # kernel -> kind -> label -> tag
+    for kernel, split, sweep in (("decode_lanes", SPLIT, SWEEP),
+                                 ("encode_lanes", ENCODE_SPLIT, ENCODE_SWEEP)):
+        if kernel not in kernels:
+            continue
+        src = sources["change"][kernel]
+        for kind, texts in (("split", split_variants(src, split)),
+                            ("sweep", sweep_variants(src, sweep))):
+            for label, text in texts.items():
+                tag = _tag(kind, kernel, label)
+                jobs[tag] = (kernel, text)
+                variants.setdefault(kernel, {}).setdefault(kind, {})[label] = tag
+    built = _build_all(jobs)
+    print(f"built {len(jobs)} libraries", flush=True)
+    fns = {v: {n: built[_tag(v, n)][0] for n in kernels} for v in sources}
+    cases = _cases(dev, kernels)
     for cname, (kernel, run, want) in cases.items():
         for version in sources:
             if not torch.equal(run(fns[version][kernel]), want):
@@ -298,41 +403,43 @@ def main(argv=None) -> None:
         turns = " / ".join(f"{t:.6f}" for t in _interleave(by, ROUNDS))
         ratio = statistics.mean(by["change"]) / statistics.mean(by["parent"])
         print(f"ab {cname}: parent, change, change, parent = {turns} ms "
-              f"(change / parent {ratio:.3f})")
+              f"(change / parent {ratio:.3f})", flush=True)
 
     phases = {}
-    for version in sources:
-        text, labels = stamp_phases(sources[version]["table_build"])
-        fn, lib = _build("table_build", f"{version}_phases", text)
+    for version in labels:
+        fn, lib = built[_tag(version, "phases")]
         read = lib.kernel_ab_stamps
         read.argtypes = [ctypes.c_void_p, ctypes.c_int]
         read.restype = ctypes.c_int
         for cname in ("table_build 16 MiB", f"table_build B={BATCH}"):
-            cyc = _phases(fn, read, cases[cname], len(labels) + 1)
-            phases[f"{version} {cname}"] = dict(zip(labels, cyc))
+            cyc = _phases(fn, read, cases[cname], len(labels[version]) + 1)
+            phases[f"{version} {cname}"] = dict(zip(labels[version], cyc))
             print(f"phases {version} {cname} (cycles; total {sum(cyc):.0f}):")
-            for label, c in zip(labels, cyc):
+            for label, c in zip(labels[version], cyc):
                 print(f"  {c:10.1f}  {label}")
 
-    split = {}
-    decode_cases = [c for c in cases if c.startswith("decode_lanes")]
-    for cname in decode_cases:
-        _, run, _ = cases[cname]
-        split[cname] = {"kernel": _device_ms(lambda: run(fns["change"]["decode_lanes"]))}
-        for label, text in split_variants(sources["change"]["decode_lanes"]).items():
-            fn, _ = _build("decode_lanes", "split_" + re.sub(r"\W+", "_", label), text)
-            split[cname][label] = _device_ms(lambda: run(fn))
-        print(f"split {cname}: " + ", ".join(f"{k} {v:.6f} ms" for k, v in split[cname].items()))
-    sweep = {}
-    for label, text in sweep_variants(sources["change"]["decode_lanes"]).items():
-        fn, _ = _build("decode_lanes", "sweep_" + re.sub(r"\W+", "_", label), text)
-        sweep[label] = {}
-        for cname in decode_cases:
-            _, run, want = cases[cname]
-            if not torch.equal(run(fn), want):
-                raise AssertionError(f"decode_lanes with {label} differs on {cname}")
-            sweep[label][cname] = _device_ms(lambda: run(fn))
-        print(f"sweep {label}: " + ", ".join(f"{c} {t:.6f} ms" for c, t in sweep[label].items()))
+    split, sweep = {}, {}
+    for kernel, kinds in variants.items():
+        kcases = [c for c in cases if c.startswith(kernel)]
+        for cname in kcases:
+            _, run, _ = cases[cname]
+            split[cname] = {"kernel": _device_ms(lambda: run(fns["change"][kernel]))}
+            for label, tag in kinds["split"].items():
+                fn = built[tag][0]
+                split[cname][label] = _device_ms(lambda: run(fn))
+            print(f"split {cname}: " + ", ".join(f"{k} {v:.6f} ms" for k, v in split[cname].items()),
+                  flush=True)
+        for label, tag in kinds["sweep"].items():
+            fn = built[tag][0]
+            key = f"{kernel} {label}"
+            sweep[key] = {}
+            for cname in kcases:
+                _, run, want = cases[cname]
+                if not torch.equal(run(fn), want):
+                    raise AssertionError(f"{kernel} with {label} differs on {cname}")
+                sweep[key][cname] = _device_ms(lambda: run(fn))
+            print(f"sweep {key}: " + ", ".join(f"{c} {t:.6f} ms" for c, t in sweep[key].items()),
+                  flush=True)
     print(f"card: {card}")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

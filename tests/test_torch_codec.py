@@ -122,6 +122,22 @@ def test_edge_blocks_identical(raw):
     assert jc.decompress(tblob) == raw
 
 
+@pytest.mark.parametrize("n", [64 << 10, (64 << 10) - 100], ids=["n_is_s_k", "partial_row"])
+def test_encode_device_pads_only_a_partial_row(n, monkeypatch):
+    """The blob equals TpuCodec's whether or not the last row is padded;
+    a block of whole rows (n = s * k) is encoded without a pad."""
+    raw = workloads.biased_u8(n, 3)
+    tc, jc = _pair()
+    want = jc.serialize(jc.encode_device(jnp.asarray(raw)))
+    k = torch_codec.default_lanes(n)
+    if n % k == 0:
+        def no_pad(*a, **kw):
+            raise AssertionError("a block of whole rows was padded")
+
+        monkeypatch.setattr(torch.nn.functional, "pad", no_pad)
+    assert tc.serialize(tc.encode_device(torch.from_numpy(raw))) == want
+
+
 def test_custom_lane_counts_and_cross_k_decode():
     raw = workloads.make_workload("lorem", 5000)
     for k in (8, 64):

@@ -1,11 +1,12 @@
-"""The plain versions of the table and decode kernels, which are the
-kernels' oracle on the card, held against the JAX package on the inputs
-of ``huffman_tpu_torch.bench.kernel_cases``.  Tolerance: exact (every
-value is an integer or a byte).
+"""The plain versions of the table, decode, encode and histogram kernels,
+which are the kernels' oracle on the card, held against the JAX package
+on the inputs of ``huffman_tpu_torch.bench.kernel_cases``.  Tolerance:
+exact (every value is an integer or a byte).
 
 The JAX side runs as its own CPU tests run it: the vmapped XLA table
-build (``serial_tree=False``) and the XLA bit-serial decode of
-``_decode_full``.
+build (``serial_tree=False``), the XLA bit-serial decode of
+``_decode_full``, the XLA encode of ``_encode_with_tables_body`` and
+``_table_hist``.
 """
 
 import functools
@@ -110,6 +111,65 @@ def test_escape_block_round_trips_on_the_fibonacci_table():
     assert (lens > 11).mean() > 0.4
 
 
+@functools.lru_cache(maxsize=None)
+def _encode_cases():
+    return kernel_cases.encode_cases(small=True)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_encode(s, k, w32):
+    return jax.jit(lambda p, t: jtc._encode_with_tables_body(p, t, s, k, w32, False))
+
+
+@pytest.mark.parametrize("name", list(_encode_cases()))
+def test_plain_encode_matches_jax_on_hard_inputs(name):
+    """The plain encode (the encode kernel's oracle), alone and as a batch
+    of three, against JAX's `_encode_with_tables_body` (XLA path)."""
+    c = _encode_cases()[name]
+    s, k, off = c["s"], c["k"], c["offset"]
+    w32 = (s * 15 + 31) // 32 + 1
+    x = torch.from_numpy(c["data"])[off:]
+    enc = table_build.build_coding_device(torch.from_numpy(c["hist"]))["enc_table"]
+    words, bits = encode.encode_lanes(x, enc, s, k, w32)
+    jw, jb = _jax_encode(s, k, w32)(jnp.asarray(c["data"][off:]), jnp.asarray(enc.numpy()))
+    np.testing.assert_array_equal(words.numpy().view(np.uint32), np.asarray(jw))
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(jb))
+    three = torch.stack([x, x.flip(0), x.roll(1)])
+    bw, bb = encode.encode_lanes_batch(three, enc.expand(3, 256), s, k, w32)
+    for i in range(3):
+        jw, jb = _jax_encode(s, k, w32)(jnp.asarray(three[i].numpy()), jnp.asarray(enc.numpy()))
+        np.testing.assert_array_equal(bw[i].numpy().view(np.uint32), np.asarray(jw))
+        np.testing.assert_array_equal(bb[i].numpy(), np.asarray(jb))
+
+
+def test_lane_skewed_block_spreads_the_lanes_of_a_warp():
+    s, k = 40, 64
+    data = kernel_cases.lane_skewed_block(s, k)
+    t = table_build.build_coding_device(torch.from_numpy(kernel_cases.fibonacci_hist()))
+    lens = (t["enc_table"] & 15).numpy()[data].reshape(s, k)
+    assert set(np.unique(lens)) == {1, 15}
+    bits = lens.sum(axis=0)
+    assert bits[:32].min() == s and bits[:32].max() == 15 * s
+
+
+HIST_BLOCKS = ["constant", "uniform"] + list(_encode_cases())
+
+
+@pytest.mark.parametrize("stride", [1, 32])
+@pytest.mark.parametrize("name", HIST_BLOCKS)
+def test_plain_table_hist_matches_jax_on_hard_inputs(name, stride):
+    """The plain sampled and full counts against JAX's `_table_hist`,
+    on blocks of a ragged length (70,001 bytes: four sample rows) and on
+    the encode's inputs (an offset view among them)."""
+    if name in _encode_cases():
+        buf, off = _encode_cases()[name]["data"], _encode_cases()[name]["offset"]
+    else:
+        buf, off = kernel_cases.hist_blocks(70001)[name], 0
+    got = lookup.table_hist(torch.from_numpy(buf)[off:], stride)
+    want = jtc._table_hist(jnp.asarray(buf[off:]), stride)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 # ---------------------------------------------------------------- tools.kernel_ab
 # Its measurements need the card; what it does to the sources does not.
 
@@ -158,3 +218,35 @@ def test_kernel_ab_sweep_changes_one_constant_each():
         name, value = label.split("=")
         assert f"constexpr int {name} = {value};" in text
         assert sum(a != b for a, b in zip(text.splitlines(), src.splitlines())) == 1
+
+
+def test_kernel_ab_encode_split_replaces_one_line_each():
+    from huffman_tpu_torch.tools import kernel_ab
+
+    src = _source("encode_lanes")
+    variants = kernel_ab.split_variants(src, kernel_ab.ENCODE_SPLIT)
+    assert len(variants) == len(kernel_ab.ENCODE_SPLIT) >= 3
+    for text in variants.values():
+        assert len(text.splitlines()) == len(src.splitlines())
+        assert sum(a != b for a, b in zip(text.splitlines(), src.splitlines())) == 1
+
+
+def test_kernel_ab_encode_sweep_changes_one_constant_each():
+    from huffman_tpu_torch.tools import kernel_ab
+
+    src = _source("encode_lanes")
+    variants = kernel_ab.sweep_variants(src, kernel_ab.ENCODE_SWEEP)
+    assert set(kernel_ab.ENCODE_SWEEP) == {"kTileLanes", "kStageRows", "kGroupRows"}
+    assert len(variants) == sum(len(v) for v in kernel_ab.ENCODE_SWEEP.values())
+    for label, text in variants.items():
+        name, value = label.split("=")
+        assert f"constexpr int {name} = {value};" in text
+        assert sum(a != b for a, b in zip(text.splitlines(), src.splitlines())) == 1
+
+
+def test_kernel_ab_covers_the_redesigned_kernels():
+    from huffman_tpu_torch.tools import kernel_ab
+
+    assert {"encode_lanes", "hist256"} <= set(kernel_ab.KERNELS)
+    for name in kernel_ab.KERNELS:
+        assert f'extern "C" int {name}_launch(' in _source(name)
