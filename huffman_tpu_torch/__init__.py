@@ -1,10 +1,12 @@
-"""huffman_tpu_torch: the ``tpu``-profile Huffman codec in PyTorch + CUDA.
+"""huffman_tpu_torch: the Huffman codec of ``huffman_tpu`` in PyTorch + CUDA.
 
 A port of ``huffman_tpu`` (JAX/Pallas) that writes and reads the same
-HTP3 blobs.  The four kernels of the single-block round trip (histogram,
-table build, lane encode, lane decode) are hand-written CUDA C++ for
-Hopper (``csrc/``), built with nvcc at first use; each has a plain
-PyTorch version beside it that serves CPU tensors.
+blobs: HTP3 (the ``tpu`` profile, `TorchCodec`) and the reference's
+K-stream format (the ``ref`` profile, `TorchRefCodec`, with its numpy
+oracle `GoldenCodec`).  The kernels (histogram, table build, lane
+encode, lane decode) are hand-written CUDA C++ for Hopper (``csrc/``),
+built with nvcc at first use; each has a plain PyTorch version beside it
+that serves CPU tensors.  Files: ``python -m huffman_tpu_torch.cli``.
 
 This package imports ``torch`` and numpy only, never ``jax`` or
 ``huffman_tpu``.
@@ -16,6 +18,15 @@ This package imports ``torch`` and numpy only, never ``jax`` or
 """
 
 from .constants import NUM_SYMBOLS, TPU_MAX_CODE_LEN
+from .golden import GoldenCodec
 from .models.torch_codec import TorchCodec, TorchCompressed
+from .models.torch_ref_codec import TorchRefCodec
 
-__all__ = ["NUM_SYMBOLS", "TPU_MAX_CODE_LEN", "TorchCodec", "TorchCompressed"]
+__all__ = [
+    "NUM_SYMBOLS",
+    "TPU_MAX_CODE_LEN",
+    "GoldenCodec",
+    "TorchCodec",
+    "TorchCompressed",
+    "TorchRefCodec",
+]

@@ -47,6 +47,16 @@
 // longer lanes take encode_lanes_direct_kernel, which stores each lane's
 // words straight to device memory, so there is no limit on S.  Offsets
 // are size_t: a batch passes 2^31 bytes.
+//
+// Row counts (the ref profile, huffman_tpu/models/jax_codec.py, whose
+// XLA encode appends nothing for rows where its valid mask is false):
+// with lane_rows, lane t takes only its first min(lane_rows[t], S) rows,
+// the same counts for every block of a batch.  A thread just ends its
+// loop over a stage's rows earlier, so its bit count, words and zero
+// tail come out as if the rows were absent; the rows are staged all the
+// same.  The tiled kernel without row counts (encode_lanes_kernel) is
+// its own instance of the tile code (encode_tile<false>), so the tpu
+// profile's encode compiles as it did.
 #include <atomic>
 #include <cstdint>
 
@@ -90,11 +100,15 @@ constexpr size_t tile_smem(int tl, int w32, int k) {
 }
 
 // One thread block a tile of blockDim.x lanes (a multiple of 32); vec_out:
-// every row of the tile's words starts on 16 bytes.
-__global__ void encode_lanes_kernel(const uint8_t* __restrict__ padded,
-                                    const int* __restrict__ enc_table, int tiles, int s, int k,
-                                    int w32, bool vec_out, uint32_t* __restrict__ words,
-                                    int* __restrict__ bit_counts) {
+// every row of the tile's words starts on 16 bytes; kRows: lane_rows holds
+// each lane's row count.
+template <bool kRows>
+__device__ __forceinline__ void encode_tile(const uint8_t* __restrict__ padded,
+                                            const int* __restrict__ enc_table,
+                                            const int* __restrict__ lane_rows, int tiles, int s,
+                                            int k, int w32, bool vec_out,
+                                            uint32_t* __restrict__ words,
+                                            int* __restrict__ bit_counts) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int tl = blockDim.x;
   const int pitch = stage_pitch(tl, k);
@@ -111,6 +125,7 @@ __global__ void encode_lanes_kernel(const uint8_t* __restrict__ padded,
   bit_counts += static_cast<size_t>(b) * k + lane0;
   const int t = threadIdx.x;
   const int width = min(tl, k - lane0);  // lanes of this tile
+  const int my_rows = kRows && t < width ? min(lane_rows[lane0 + t], s) : s;
   // The table as (code, right-aligned) << 4 | len.
   for (int i = t; i < 256; i += tl) {
     const uint32_t e = static_cast<uint32_t>(enc_table[i]), len = e & 15;
@@ -163,7 +178,7 @@ __global__ void encode_lanes_kernel(const uint8_t* __restrict__ padded,
     __syncthreads();
     if (t < width) {
       const uint8_t* col = stage + (st & 1) * kStageRows * pitch + mis(st * kStageRows) + t;
-      const int rows = min(kStageRows, s - st * kStageRows);
+      const int rows = min(kStageRows, my_rows - st * kStageRows);  // < 1: none
       // kGroupRows rows at a time, every byte and table entry loaded
       // before the first append (whose word store the compiler may not
       // move the next loads above); then the rest in pairs, a last odd
@@ -212,10 +227,28 @@ __global__ void encode_lanes_kernel(const uint8_t* __restrict__ padded,
   }
 }
 
+__global__ void encode_lanes_kernel(const uint8_t* __restrict__ padded,
+                                    const int* __restrict__ enc_table, int tiles, int s, int k,
+                                    int w32, bool vec_out, uint32_t* __restrict__ words,
+                                    int* __restrict__ bit_counts) {
+  encode_tile<false>(padded, enc_table, nullptr, tiles, s, k, w32, vec_out, words, bit_counts);
+}
+
+__global__ void encode_lanes_rows_kernel(const uint8_t* __restrict__ padded,
+                                         const int* __restrict__ enc_table,
+                                         const int* __restrict__ lane_rows, int tiles, int s,
+                                         int k, int w32, bool vec_out,
+                                         uint32_t* __restrict__ words,
+                                         int* __restrict__ bit_counts) {
+  encode_tile<true>(padded, enc_table, lane_rows, tiles, s, k, w32, vec_out, words, bit_counts);
+}
+
 // Lanes too long for a tile: one thread a lane stores every full
-// u32 straight to words[b][w*K + k], then zeros to row w32.
+// u32 straight to words[b][w*K + k], then zeros to row w32; lane_rows
+// (or nullptr: S each) as in the tiles.
 __global__ void encode_lanes_direct_kernel(const uint8_t* __restrict__ padded,
-                                           const int* __restrict__ enc_table, int lane_blocks,
+                                           const int* __restrict__ enc_table,
+                                           const int* __restrict__ lane_rows, int lane_blocks,
                                            int s, int k, int w32, uint32_t* __restrict__ words,
                                            int* __restrict__ bit_counts) {
   const int b = blockIdx.x / lane_blocks;
@@ -229,11 +262,12 @@ __global__ void encode_lanes_direct_kernel(const uint8_t* __restrict__ padded,
   __syncthreads();
   const int lane = (blockIdx.x - b * lane_blocks) * kDirectThreads + threadIdx.x;
   if (lane >= k) return;
+  const int rows = lane_rows != nullptr ? min(lane_rows[lane], s) : s;
   uint64_t acc = 0;
   int nbits = 0;
   int total = 0;
   int w = 0;
-  for (int r = 0; r < s; ++r) {
+  for (int r = 0; r < rows; ++r) {
     const uint32_t e = tab[padded[static_cast<size_t>(r) * k + lane]];
     const int len = e & 15;
     acc = (acc << len) | ((e >> 4) >> (kL - len));
@@ -252,16 +286,18 @@ __global__ void encode_lanes_direct_kernel(const uint8_t* __restrict__ padded,
 
 }  // namespace
 
-// padded: (B, s*k) uint8; enc_table: (B, 256) int32; words: (B, w32, k)
-// u32; bit_counts: (B, k) int32.  B >= 1.  w32 must exceed the longest
-// lane's word count (w32 = (s*15+31)/32 + 1 always does).  Returns the
-// CUDA error code of the launch.
-extern "C" int encode_lanes_launch(const void* padded, const void* enc_table, int B,
-                                   int s, int k, int w32, void* words,
-                                   void* bit_counts, void* stream) {
+// padded: (B, s*k) uint8; enc_table: (B, 256) int32; lane_rows: (k,)
+// int32 row counts shared by the B blocks, or nullptr for s rows a lane;
+// words: (B, w32, k) u32; bit_counts: (B, k) int32.  B >= 1.  w32 must
+// exceed the longest lane's word count (w32 = (s*15+31)/32 + 1 always
+// does).  Returns the CUDA error code of the launch.
+extern "C" int encode_lanes_rows_launch(const void* padded, const void* enc_table, int B,
+                                        int s, int k, int w32, const void* lane_rows,
+                                        void* words, void* bit_counts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint8_t* in = static_cast<const uint8_t*>(padded);
   const int* tab = static_cast<const int*>(enc_table);
+  const int* rows = static_cast<const int*>(lane_rows);
   uint32_t* out = static_cast<uint32_t*>(words);
   int* bits = static_cast<int*>(bit_counts);
   if (static_cast<size_t>(w32) * kTileLanes * 4 > kTileBytes) {
@@ -269,7 +305,7 @@ extern "C" int encode_lanes_launch(const void* padded, const void* enc_table, in
     const long long grid = static_cast<long long>(lane_blocks) * B;
     if (grid > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidConfiguration);
     encode_lanes_direct_kernel<<<static_cast<unsigned>(grid), kDirectThreads, 0, st>>>(
-        in, tab, lane_blocks, s, k, w32, out, bits);
+        in, tab, rows, lane_blocks, s, k, w32, out, bits);
     return static_cast<int>(cudaGetLastError());
   }
   const int tiles = (k + kTileLanes - 1) / kTileLanes;
@@ -277,8 +313,9 @@ extern "C" int encode_lanes_launch(const void* padded, const void* enc_table, in
   if (grid > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidConfiguration);
   const size_t smem = tile_smem(kTileLanes, w32, k);
   // Above 48 KB a kernel needs the attribute, on each device: set once a
-  // device, to the most any tile takes, before its first launch there
-  // (and so before a graph capture).  Two threads may both set it.
+  // device for both tiled kernels, to the most any tile takes, before
+  // their first launch there (and so before a graph capture).  Two
+  // threads may both set it.
   static std::atomic<bool> big[kMaxDevices];
   if (smem > (48 << 10)) {
     int dev = 0;
@@ -286,15 +323,31 @@ extern "C" int encode_lanes_launch(const void* padded, const void* enc_table, in
     if (e != cudaSuccess) return static_cast<int>(e);
     if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
     if (!big[dev].load(std::memory_order_acquire)) {
-      const size_t most = tile_smem(kTileLanes, kTileBytes / (kTileLanes * 4), 15);
+      const int most = static_cast<int>(tile_smem(kTileLanes, kTileBytes / (kTileLanes * 4), 15));
       e = cudaFuncSetAttribute(encode_lanes_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(most));
+                               most);
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute(encode_lanes_rows_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, most);
       if (e != cudaSuccess) return static_cast<int>(e);
       big[dev].store(true, std::memory_order_release);
     }
   }
   const bool vec_out = k % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  encode_lanes_kernel<<<static_cast<unsigned>(grid), kTileLanes, smem, st>>>(
-      in, tab, tiles, s, k, w32, vec_out, out, bits);
+  if (rows != nullptr)
+    encode_lanes_rows_kernel<<<static_cast<unsigned>(grid), kTileLanes, smem, st>>>(
+        in, tab, rows, tiles, s, k, w32, vec_out, out, bits);
+  else
+    encode_lanes_kernel<<<static_cast<unsigned>(grid), kTileLanes, smem, st>>>(
+        in, tab, tiles, s, k, w32, vec_out, out, bits);
   return static_cast<int>(cudaGetLastError());
+}
+
+// encode_lanes_rows_launch with s rows a lane: the tpu profile's entry,
+// whose argument list other versions of this file share.
+extern "C" int encode_lanes_launch(const void* padded, const void* enc_table, int B,
+                                   int s, int k, int w32, void* words,
+                                   void* bit_counts, void* stream) {
+  return encode_lanes_rows_launch(padded, enc_table, B, s, k, w32, nullptr, words, bit_counts,
+                                  stream);
 }

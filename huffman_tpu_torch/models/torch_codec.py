@@ -30,7 +30,7 @@ import struct
 import numpy as np
 import torch
 
-from .. import container, native
+from .. import coding, container, native
 from ..constants import NUM_SYMBOLS
 from ..constants import TPU_MAX_CODE_LEN as MAX_CODE_LEN
 from ..ops.decode_bits import decode_lanes, decode_lanes_batch, decode_tables_bitserial
@@ -160,6 +160,27 @@ class TorchCompressed:
                 "sorted_syms": packed[2 + MAX_CODE_LEN + 1 :],
             }
         return self._meta
+
+    @property
+    def coding(self) -> coding.CanonicalCoding:
+        """The block's coding on the host, codes left-aligned in 15 bits
+        (from `meta`)."""
+        m = self.meta()
+        num_syms = m["num_syms"]
+        sorted_syms = m["sorted_syms"][:num_syms].astype(np.uint8)
+        len_count = m["len_count"].astype(np.uint16)
+        code_bits, code_lens = coding.assign_canonical_codes(
+            len_count, sorted_syms, MAX_CODE_LEN
+        )
+        return coding.CanonicalCoding(
+            code_bits=code_bits,
+            code_lens=code_lens,
+            sorted_syms=sorted_syms,
+            len_count=len_count,
+            len_mask=sum(1 << ln for ln in range(MAX_CODE_LEN + 1) if len_count[ln]),
+            num_syms=num_syms,
+            max_len=MAX_CODE_LEN,
+        )
 
 
 def _empty_tables(device) -> dict:

@@ -5,7 +5,10 @@ entropy-codes the lane bit counts of a huff-counts blob
 (``hh_compress`` / ``hh_decompress``), the same codec for kind-R
 container records, and the single-pass packers of the compact payload
 (``hp_pack_lane_bits`` / ``hp_unpack_lane_bits``).  `NativeCodec` offers
-the ref-profile codec as a bytes codec to the benchmark suite.
+the ref-profile codec as a bytes codec to the benchmark suite and to
+`TorchRefCodec`'s host path; `compress_file` / `decompress_file` are the
+threaded file pipeline (``hp_compress_file`` / ``hp_decompress_file``)
+of the CLI's ``native`` profile.
 
 The library is compiled with g++ into ``build/torch/`` at first use, for
 the host it runs on (no ``-march=native``: the file may be carried to
@@ -56,6 +59,11 @@ def load() -> ctypes.CDLL:
         lib.hp_pack_lane_bits.argtypes = [vp, vp, i64, i64, vp]
         lib.hp_unpack_lane_bits.restype = i64
         lib.hp_unpack_lane_bits.argtypes = [vp, i64, vp, i64, i64, vp]
+        cp, lng, c_int = ctypes.c_char_p, ctypes.c_long, ctypes.c_int
+        lib.hp_compress_file.restype = lng
+        lib.hp_compress_file.argtypes = [cp, cp, lng, c_int, c_int]
+        lib.hp_decompress_file.restype = lng
+        lib.hp_decompress_file.argtypes = [cp, cp, c_int]
         _lib = lib
         return _lib
 
@@ -104,6 +112,33 @@ class NativeCodec:
 
     def decompress(self, blob: bytes) -> bytes:
         return decompress(blob, self.k, self.max_size)
+
+
+def compress_file(
+    in_path: str, out_path: str, k: int = 32, block: int = 1 << 20, threads: int = 0
+) -> int:
+    """Compress a file through the threaded pipeline: an HTPC container
+    of ref-profile records (``k`` streams, blocks of ``block`` bytes),
+    each block stored raw where that is smaller.  Returns the bytes
+    written; ``threads`` 0 means one per CPU."""
+    lib = load()
+    threads = threads if threads > 0 else os.cpu_count() or 1
+    r = lib.hp_compress_file(in_path.encode(), out_path.encode(), block, k, threads)
+    if r < 0:
+        raise RuntimeError(f"native pipeline compress failed for {in_path!r}")
+    return int(r)
+
+
+def decompress_file(in_path: str, out_path: str, threads: int = 0) -> int:
+    """Inverse of `compress_file`.  Returns the bytes written; raises
+    ValueError for a container the pipeline cannot decode (corrupt, or
+    holding HTP3 records, which need the device decoder)."""
+    lib = load()
+    threads = threads if threads > 0 else os.cpu_count() or 1
+    r = lib.hp_decompress_file(in_path.encode(), out_path.encode(), threads)
+    if r < 0:
+        raise ValueError(f"native pipeline could not decode {in_path!r}")
+    return int(r)
 
 
 def pack_lane_bits(lane_bytes: np.ndarray, bits: np.ndarray) -> bytes:

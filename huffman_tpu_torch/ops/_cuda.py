@@ -48,9 +48,15 @@ _ARGTYPES = {
     "decode_lanes": [_VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP, _VP],
     "hist256_onehot": [_VP, _I64, _I32, _VP, _VP],
 }
+#: Further C entries ``<entry>_launch`` of a kernel's library: entry ->
+#: (kernel, ctypes argument types).  A launch through one counts as a
+#: launch of its kernel.
+_MORE_ENTRIES = {
+    "encode_lanes_rows": ("encode_lanes", [_VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP]),
+}
 
 _lock = threading.Lock()
-_lib = None  # kernel name -> its C entry point, once built
+_lib = None  # entry name -> its C entry point, once built
 _build_log = ""
 
 
@@ -65,9 +71,9 @@ def _nvcc() -> str:
 
 
 def load() -> dict:
-    """Each kernel's C entry ``<name>_launch`` by kernel name, the
-    libraries compiled first if needed (all at once).  Raises when nvcc
-    is missing or a build fails."""
+    """Each C entry ``<entry>_launch`` by entry name (a kernel's name, or
+    one of `_MORE_ENTRIES`), the libraries compiled first if needed (all
+    at once).  Raises when nvcc is missing or a build fails."""
     global _lib, _build_log
     with _lock:
         if _lib is not None:
@@ -82,12 +88,14 @@ def load() -> dict:
 
         with ThreadPoolExecutor(len(KERNELS)) as pool:
             built = list(pool.map(build, KERNELS))
+        dlls = {name: ctypes.CDLL(path) for name, (path, _) in zip(KERNELS, built)}
+        entries = {name: (name, _ARGTYPES[name]) for name in KERNELS} | _MORE_ENTRIES
         libs = {}
-        for name, (path, _) in zip(KERNELS, built):
-            fn = getattr(ctypes.CDLL(path), f"{name}_launch")
-            fn.argtypes = _ARGTYPES[name]
+        for entry, (name, argtypes) in entries.items():
+            fn = getattr(dlls[name], f"{entry}_launch")
+            fn.argtypes = argtypes
             fn.restype = _I32
-            libs[name] = fn
+            libs[entry] = fn
         _build_log = "".join(log for _, log in built)
         _lib = libs
         return _lib
@@ -104,9 +112,11 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def launch(name: str, *args) -> None:
-    """Call ``<name>_launch(*args)`` and count it; raises on a CUDA error."""
-    rc = load()[name](*args)
+def launch(entry: str, *args) -> None:
+    """Call ``<entry>_launch(*args)`` and count a launch of its kernel;
+    raises on a CUDA error."""
+    name = _MORE_ENTRIES[entry][0] if entry in _MORE_ENTRIES else entry
+    rc = load()[entry](*args)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
     LAUNCHES[name] += 1

@@ -13,6 +13,11 @@ A batch of B blocks (the vmapped encode of ``_encode_batch``) is one
 launch of the same kernel, `encode_lanes_batch`; a single block is the
 batch of one.  The CUDA kernel is ``csrc/encode_lanes.cu``;
 `encode_lanes_batch_plain` is its plain PyTorch version.
+
+``lane_rows`` ((k,) int32, the ``ref`` profile's slice sizes) gives each
+lane its own row count: rows at or past it append nothing, as the rows
+that ``valid`` masks out in ``huffman_tpu/ops/encode.py:encode_lanes``.
+``None`` gives every lane all s rows.
 """
 
 from __future__ import annotations
@@ -24,20 +29,25 @@ from . import _cuda
 
 
 def encode_lanes(
-    padded: torch.Tensor, enc_table: torch.Tensor, s: int, k: int, w32: int
+    padded: torch.Tensor,
+    enc_table: torch.Tensor,
+    s: int,
+    k: int,
+    w32: int,
+    lane_rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (words (w32, k) int32, bit_counts (k,) int32).
 
     ``w32`` must exceed the longest lane's word count; the codec's
-    ``(s*15 + 31)//32 + 1`` always does.
+    ``(s*15 + 31)//32 + 1`` always does.  ``lane_rows``: see the module.
     """
     if tuple(padded.shape) != (s * k,) or tuple(enc_table.shape) != (256,):
         raise ValueError(f"expected ({s * k},) bytes and a (256,) table")
     if padded.is_cuda:
-        return _encode_cuda(padded, enc_table, 1, s, k, w32)
+        return _encode_cuda(padded, enc_table, 1, s, k, w32, lane_rows)
     if padded.device.type != "cpu":
         raise ValueError(f"unsupported device {padded.device}")
-    return encode_lanes_plain(padded, enc_table, s, k, w32)
+    return encode_lanes_plain(padded, enc_table, s, k, w32, lane_rows)
 
 
 def encode_lanes_batch(
@@ -55,19 +65,23 @@ def encode_lanes_batch(
     return encode_lanes_batch_plain(blocks, enc_tables, s, k, w32)
 
 
-def _encode_cuda(blocks, enc_tables, bcount: int, s: int, k: int, w32: int):
+def _encode_cuda(blocks, enc_tables, bcount: int, s: int, k: int, w32: int, lane_rows=None):
     """One launch over ``bcount`` blocks; the outputs take the inputs'
     leading dimensions (none for a single block, (B,) for a batch)."""
     lead = tuple(blocks.shape[:-1])
     _cuda.check(blocks, "blocks", torch.uint8, lead + (s * k,))
     _cuda.check(enc_tables, "enc_tables", torch.int32, lead + (256,))
+    if lane_rows is not None:
+        _cuda.check(lane_rows, "lane_rows", torch.int32, (k,))
     _cuda.load()
     words = torch.empty(lead + (w32, k), dtype=torch.int32, device=blocks.device)
     bits = torch.empty(lead + (k,), dtype=torch.int32, device=blocks.device)
-    _cuda.launch(
-        "encode_lanes", blocks.data_ptr(), enc_tables.data_ptr(), bcount, s, k, w32,
-        words.data_ptr(), bits.data_ptr(), _cuda.stream(blocks),
-    )
+    args = (blocks.data_ptr(), enc_tables.data_ptr(), bcount, s, k, w32)
+    outs = (words.data_ptr(), bits.data_ptr(), _cuda.stream(blocks))
+    if lane_rows is None:
+        _cuda.launch("encode_lanes", *args, *outs)
+    else:
+        _cuda.launch("encode_lanes_rows", *args, lane_rows.data_ptr(), *outs)
     return words, bits
 
 
@@ -77,20 +91,31 @@ def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
 
 
 def encode_lanes_plain(
-    padded: torch.Tensor, enc_table: torch.Tensor, s: int, k: int, w32: int
+    padded: torch.Tensor,
+    enc_table: torch.Tensor,
+    s: int,
+    k: int,
+    w32: int,
+    lane_rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of `encode_lanes`: the batch of one."""
     words, bits = encode_lanes_batch_plain(
-        padded.view(1, -1), enc_table.view(1, -1), s, k, w32
+        padded.view(1, -1), enc_table.view(1, -1), s, k, w32, lane_rows
     )
     return words[0], bits[0]
 
 
 def encode_lanes_batch_plain(
-    blocks: torch.Tensor, enc_tables: torch.Tensor, s: int, k: int, w32: int
+    blocks: torch.Tensor,
+    enc_tables: torch.Tensor,
+    s: int,
+    k: int,
+    w32: int,
+    lane_rows: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the encode kernel: a loop over the s rows,
-    vectorised over the B*k lanes of the batch, in int64."""
+    vectorised over the B*k lanes of the batch, in int64.  ``lane_rows``
+    ((k,), shared by the B blocks): a row at or past it adds length 0."""
     if blocks.dtype != torch.uint8 or blocks.dim() != 2 or blocks.shape[1] != s * k:
         raise ValueError(f"expected a (B, {s * k}) uint8 tensor")
     bcount = blocks.shape[0]
@@ -102,9 +127,10 @@ def encode_lanes_batch_plain(
             + torch.arange(k, device=dev)).view(-1)
     words = torch.zeros(bcount * w32 * k, dtype=torch.int64, device=dev)
     pos = torch.zeros(bcount * k, dtype=torch.int64, device=dev)
+    taken = None if lane_rows is None else lane_rows.to(dev, torch.int64).repeat(bcount)
     for r in range(s):
         e = tab.gather(1, rows[:, r]).view(-1)
-        ln = e & 15
+        ln = e & 15 if taken is None else torch.where(r < taken, e & 15, 0)
         code = (e >> 4) >> (_L - ln)  # the code's ln bits
         w, end = pos >> 5, (pos & 31) + ln  # end <= 31 + 15
         # Bits of the code that land in word w, and those that spill into

@@ -157,7 +157,8 @@ def test_run_benchmarks_main_on_cpu(tmp_path, capsys, monkeypatch):
     results = json.loads(out.read_text())
     rows = results["biased"]["rows"]
     assert [r["method"] for r in rows] == [
-        "Torch<auto>", "Torch<8192>", "Torch<32768>", "NativeHost", "NativeHost", "zlib-1"
+        "Torch<auto>", "Torch<8192>", "Torch<32768>", "TorchRef", "NativeHost", "NativeHost",
+        "zlib-1",
     ]
     assert all(r["roundtrip_ok"] for r in rows)
     assert render_markdown(results) in capsys.readouterr().out

@@ -38,6 +38,9 @@ def test_import_leaves_out_jax_and_huffman_tpu():
         "import huffman_tpu_torch.bench.harness, huffman_tpu_torch.bench.table\n"
         "import huffman_tpu_torch.ops.hist_variants\n"
         "import huffman_tpu_torch.tools.hist_experiments, huffman_tpu_torch.tools.run_benchmarks\n"
+        "import huffman_tpu_torch.cli, huffman_tpu_torch.coding, huffman_tpu_torch.format\n"
+        "import huffman_tpu_torch.golden, huffman_tpu_torch.ops.tables\n"
+        "import huffman_tpu_torch.models.torch_ref_codec, huffman_tpu_torch.tools.kernel_ab\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'huffman_tpu')]\n"
         "print('BAD', bad)\n"
         "assert not bad\n"
@@ -91,6 +94,10 @@ CUDA_CALLS = {
         _FakeCudaTensor((16,), torch.int32),
         _FakeCudaTensor((256,), torch.int32),
         8,
+    ),
+    "encode_lanes_rows": lambda: encode.encode_lanes(
+        _FakeCudaTensor((64,), torch.uint8), _FakeCudaTensor((256,), torch.int32), 8, 8, 5,
+        lane_rows=_FakeCudaTensor((8,), torch.int32),
     ),
     "histogram256_batch": lambda: lookup.histogram256_batch(
         _FakeCudaTensor((3, 4096), torch.uint8)
