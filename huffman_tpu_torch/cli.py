@@ -13,9 +13,11 @@ of HTP3 blocks of --block bytes, default 16 MiB, incompressible blocks
 stored); ``ref`` — the reference-compatible K-stream blob of
 `TorchRefCodec` (K = --k, default 32; the format has no container);
 ``native`` — the same ref format through the host library's threaded
-pipeline (a container of ref records), no device needed.  --device
-(default cuda) is where the tpu and ref profiles run; ``cpu`` runs the
-kernels' plain versions.  A missing host toolchain raises.
+pipeline (a container of ref records), no device needed; where the
+host library cannot be built, the ``native`` profile writes and reads a
+bare ref blob through the numpy oracle, as ``huffman_tpu.cli`` does.
+--device (default cuda) is where the tpu and ref profiles run; ``cpu``
+runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -46,8 +48,11 @@ def compress_file(
 ) -> dict:
     t0 = time.perf_counter()
     if profile == "native":
-        n_out = native.compress_file(inp, out, k=k or 32, block=block)
-        return {"in": os.path.getsize(inp), "out": n_out, "seconds": time.perf_counter() - t0}
+        try:
+            n_out = native.compress_file(inp, out, k=k or 32, block=block)
+            return {"in": os.path.getsize(inp), "out": n_out, "seconds": time.perf_counter() - t0}
+        except RuntimeError:
+            pass  # no host library: a bare ref blob through the bytes codec below
     codec = _codec(profile, k, device)
     with open(inp, "rb") as fi:
         raw = fi.read()
@@ -69,7 +74,15 @@ def decompress_file(
         blob = fi.read()
     if profile == "native" and blob[:4] == container.MAGIC:
         # The pipeline's container; else a bare ref blob, decoded below.
-        n_out = native.decompress_file(inp, out)
+        try:
+            n_out = native.decompress_file(inp, out)
+        except RuntimeError:
+            # No host library: the container's 'R' and 'S' records through
+            # the numpy oracle.
+            raw = container.decompress_blocks(blob, None)
+            with open(out, "wb") as fo:
+                fo.write(raw)
+            n_out = len(raw)
         return {"in": len(blob), "out": n_out, "seconds": time.perf_counter() - t0}
     codec = _codec(profile, k, device)
     if profile == "tpu":

@@ -65,8 +65,27 @@ def compress_blocks(raw: bytes, codec, block_size: int = DEFAULT_BLOCK) -> bytes
             records.append((KIND_STORED, raw_len, raw[pos : pos + raw_len]))
         else:
             records.append((KIND_HUFF, raw_len, blob))
-    records.append((KIND_CRC, 0, struct.pack("<I", zlib.crc32(raw) & 0xFFFFFFFF)))
+    records.append(crc_record(raw))
     return pack(records, block_size)
+
+
+def crc_record(raw: bytes) -> tuple[int, int, bytes]:
+    """The integrity trailer: the crc32 of the whole raw content."""
+    return (KIND_CRC, 0, struct.pack("<I", zlib.crc32(raw) & 0xFFFFFFFF))
+
+
+def check_crc(records, out: bytes) -> None:
+    """Check the 'C' trailer, where there is one, against the decoded
+    ``out``; raises ValueError on a mismatch."""
+    for kind, _kx, _rl, rec in records:
+        if kind == KIND_CRC and len(rec) == 4:
+            want = struct.unpack("<I", rec)[0]
+            got = zlib.crc32(out) & 0xFFFFFFFF
+            if got != want:
+                raise ValueError(
+                    f"container crc mismatch: content crc {got:#010x} != "
+                    f"stored {want:#010x} (corrupt payload)"
+                )
 
 
 def parse_records(data: bytes):
@@ -90,7 +109,8 @@ def parse_records(data: bytes):
 
 
 def decode_record(kind: int, kx: int, raw_len: int, rec: bytes, codec) -> bytes:
-    """The raw bytes of one record ('H' records through ``codec``)."""
+    """The raw bytes of one record ('H' records through ``codec``, which
+    may be None for a container of 'R' and 'S' records)."""
     if kind == KIND_STORED:
         if len(rec) != raw_len:
             raise ValueError("stored record length mismatch")
@@ -98,6 +118,8 @@ def decode_record(kind: int, kx: int, raw_len: int, rec: bytes, codec) -> bytes:
     if kind == KIND_CRC or raw_len == 0:
         return b""
     if kind == KIND_HUFF:
+        if codec is None:
+            raise ValueError("container holds tpu-profile records; a device codec is required")
         return codec.decompress(rec)[:raw_len]
     if kind == KIND_REF:
         if not (1 <= kx <= 0xFFFF):
@@ -113,13 +135,5 @@ def decompress_blocks(data: bytes, codec) -> bytes:
     out = b"".join(decode_record(kind, kx, rl, rec, codec) for kind, kx, rl, rec in records)
     if len(out) != total_raw:
         raise ValueError(f"container truncated: decoded {len(out)} of {total_raw} bytes")
-    for kind, _kx, _rl, rec in records:
-        if kind == KIND_CRC and len(rec) == 4:
-            want = struct.unpack("<I", rec)[0]
-            got = zlib.crc32(out) & 0xFFFFFFFF
-            if got != want:
-                raise ValueError(
-                    f"container crc mismatch: content crc {got:#010x} != "
-                    f"stored {want:#010x} (corrupt payload)"
-                )
+    check_crc(records, out)
     return out

@@ -12,8 +12,11 @@ of the CLI's ``native`` profile.
 
 The library is compiled with g++ into ``build/torch/`` at first use, for
 the host it runs on (no ``-march=native``: the file may be carried to
-another machine).  There is no fallback: if it cannot be built, every
-call raises.
+another machine).  Where it cannot be built or loaded, `compress` and
+`decompress` take the numpy oracle (``golden``) and the lane-bit packers
+their numpy forms (``models.torch_codec``), with the same bytes, as
+``huffman_tpu/native.py`` does; the file pipeline raises RuntimeError, and
+the CLI then writes and reads a bare ref blob as ``huffman_tpu.cli`` does.
 """
 
 from __future__ import annotations
@@ -68,9 +71,21 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
+def _lib_or_none():
+    """The host library, or None where it cannot be built or loaded."""
+    try:
+        return load()
+    except (RuntimeError, OSError):
+        return None
+
+
 def compress(raw: bytes, k: int) -> bytes:
     """Ref-profile blob of ``raw`` with ``k`` streams."""
-    lib = load()
+    lib = _lib_or_none()
+    if lib is None:
+        from . import golden
+
+        return golden.compress(raw, k)
     bound = lib.hh_compress_bound(len(raw), k)
     out = np.empty(bound, dtype=np.uint8)
     size = lib.hh_compress(raw, len(raw), k, out.ctypes.data, bound)
@@ -82,7 +97,14 @@ def compress(raw: bytes, k: int) -> bytes:
 def decompress(blob: bytes, k: int, max_size: int) -> bytes:
     """Inverse of `compress`.  ``max_size`` bounds the raw size the header
     may claim, so a corrupt header cannot demand a huge buffer."""
-    lib = load()
+    lib = _lib_or_none()
+    if lib is None:
+        from . import format as fmt, golden
+
+        n = fmt.parse_header(blob, k).raw_size
+        if n > max_size:
+            raise ValueError(f"ref-profile blob claims {n} bytes, at most {max_size}")
+        return golden.decompress(blob, k)
     n = lib.hh_raw_size(blob, len(blob))
     if n > max_size:
         raise ValueError(f"ref-profile blob claims {n} bytes, at most {max_size}")
@@ -144,8 +166,8 @@ def decompress_file(in_path: str, out_path: str, threads: int = 0) -> int:
 def pack_lane_bits(lane_bytes: np.ndarray, bits: np.ndarray) -> bytes:
     """Concatenate lane i's first ``bits[i]`` bits of ``lane_bytes[i]``
     (MSB-first) into one stream; same bytes as the NumPy
-    ``torch_codec._pack_lane_bits``."""
-    lib = load()
+    ``torch_codec._pack_lane_bits``, which serves where the library does
+    not load."""
     lane_bytes = np.ascontiguousarray(lane_bytes, dtype=np.uint8)
     bits64 = np.ascontiguousarray(bits, dtype=np.int64)
     k, nb = lane_bytes.shape
@@ -153,6 +175,11 @@ def pack_lane_bits(lane_bytes: np.ndarray, bits: np.ndarray) -> bytes:
         bits64.min(initial=0) < 0
     ):
         raise ValueError("bit counts do not fit the lane bytes")
+    lib = _lib_or_none()
+    if lib is None:
+        from .models.torch_codec import _pack_lane_bits
+
+        return _pack_lane_bits(lane_bytes, bits64)
     out = np.empty((int(bits64.sum()) + 7) // 8, dtype=np.uint8)
     n = lib.hp_pack_lane_bits(
         lane_bytes.ctypes.data, bits64.ctypes.data, k, nb, out.ctypes.data
@@ -161,13 +188,20 @@ def pack_lane_bits(lane_bytes: np.ndarray, bits: np.ndarray) -> bytes:
 
 
 def unpack_lane_bits(stream: np.ndarray, bits: np.ndarray, nb_out: int) -> np.ndarray:
-    """Inverse of `pack_lane_bits`: (k, nb_out) uint8, tails zeroed."""
-    lib = load()
+    """Inverse of `pack_lane_bits`: (k, nb_out) uint8, tails zeroed (the
+    numpy form where the library does not load)."""
     stream = np.ascontiguousarray(stream, dtype=np.uint8)
     bits64 = np.ascontiguousarray(bits, dtype=np.int64)
     k = bits64.shape[0]
     if int(bits64.max(initial=0)) > 8 * nb_out or bits64.min(initial=0) < 0:
         raise ValueError("bit counts do not fit the lane bytes")
+    lib = _lib_or_none()
+    if lib is None:
+        from .models.torch_codec import _unpack_lane_bits
+
+        if int(bits64.sum()) > 8 * stream.shape[0]:
+            raise ValueError("payload shorter than bit counts imply")
+        return _unpack_lane_bits(stream, bits64, nb_out)
     out = np.zeros((k, nb_out), dtype=np.uint8)
     rc = lib.hp_unpack_lane_bits(
         stream.ctypes.data, stream.shape[0], bits64.ctypes.data, k, nb_out,

@@ -2,14 +2,17 @@
 the model of tests/test_cli.py): the same argv writes the same ``ref``
 and ``native`` files, each package reads the other's files, the ``tpu``
 profile's container round-trips and reads in both, and a corrupt
-container exits non-zero.  The port runs with ``--device cpu``.
+container exits non-zero; without the host library the ``native``
+profile falls back to the numpy oracle in both packages alike.  The port
+runs with ``--device cpu``.
 """
 
 import numpy as np
 import pytest
 
 from huffman_tpu import cli as jcli
-from huffman_tpu_torch import cli
+from huffman_tpu import native as jnative
+from huffman_tpu_torch import TorchCodec, cli, native
 
 CPU = ["--device", "cpu"]
 
@@ -95,3 +98,67 @@ def test_unknown_profile_rejected(sample_file, tmp_path):
     f, _ = sample_file
     with pytest.raises(SystemExit):
         cli.main(["compress", str(f), str(tmp_path / "x"), "--profile", "zstd", *CPU])
+
+
+@pytest.fixture
+def small_file(tmp_path):
+    """20,000 biased bytes: the numpy oracle decodes a symbol at a time."""
+    rng = np.random.default_rng(6)
+    p = 0.8 ** np.arange(256) * 0.2
+    p /= p.sum()
+    data = rng.choice(256, size=20_000, p=p).astype(np.uint8).tobytes()
+    f = tmp_path / "small.bin"
+    f.write_bytes(data)
+    return f, data
+
+
+def _no_host_library(monkeypatch):
+    """Both packages' host-library loaders fail, as without a toolchain."""
+
+    def fail():
+        raise RuntimeError("compiler 'g++' is not usable")
+
+    monkeypatch.setattr(jnative, "load", lambda: None)
+    monkeypatch.setattr(native, "load", fail)
+
+
+def test_native_profile_without_host_library_writes_jax_file(small_file, tmp_path, monkeypatch):
+    """No library: both CLIs write the same bare ref blob (not a
+    container) through the oracle, and each reads the other's."""
+    f, data = small_file
+    args = ["--profile", "native", "--k", "32"]
+    _no_host_library(monkeypatch)
+    ours, theirs, back = tmp_path / "ours", tmp_path / "theirs", tmp_path / "back"
+    cli.main(["compress", str(f), str(ours), *args, *CPU])
+    jcli.main(["compress", str(f), str(theirs), *args])
+    assert ours.read_bytes() == theirs.read_bytes()
+    assert ours.read_bytes()[:4] != b"HTPC"
+    cli.main(["decompress", str(theirs), str(back), *args, *CPU])
+    assert back.read_bytes() == data
+    jcli.main(["decompress", str(ours), str(back), *args])
+    assert back.read_bytes() == data
+
+
+def test_native_container_reads_without_host_library(small_file, tmp_path, monkeypatch):
+    """A pipeline container written with the library decodes without it."""
+    f, data = small_file
+    c, back = tmp_path / "c", tmp_path / "back"
+    cli.main(["compress", str(f), str(c), "--profile", "native", "--block", "8192", *CPU])
+    assert c.read_bytes()[:4] == b"HTPC"
+    _no_host_library(monkeypatch)
+    cli.main(["decompress", str(c), str(back), "--profile", "native", *CPU])
+    assert back.read_bytes() == data
+
+
+def test_tpu_blobs_without_host_library_are_the_same(small_file, monkeypatch):
+    """The counts blob (ref codec) and the lane-bit packers fall back to
+    their numpy forms with the same bytes."""
+    _, data = small_file
+    tc = TorchCodec(64, device="cpu")
+    want = tc.compress(data)
+    _no_host_library(monkeypatch)
+    assert tc.compress(data) == want
+    assert tc.decompress(want) == data
+    assert native.decompress(native.compress(data, 8), 8, len(data)) == data
+    with pytest.raises(ValueError, match="at most"):
+        native.decompress(native.compress(data, 8), 8, len(data) - 1)

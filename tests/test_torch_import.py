@@ -16,6 +16,7 @@ from huffman_tpu.bench import workloads as jax_workloads
 from huffman_tpu_torch import TorchCodec
 from huffman_tpu_torch.bench import workloads
 from huffman_tpu_torch.ops import _cuda, decode_bits, encode, hist_variants, lookup, table_build
+from huffman_tpu_torch.parallel import sharded
 
 torch.set_num_threads(2)
 
@@ -41,6 +42,11 @@ def test_import_leaves_out_jax_and_huffman_tpu():
         "import huffman_tpu_torch.cli, huffman_tpu_torch.coding, huffman_tpu_torch.format\n"
         "import huffman_tpu_torch.golden, huffman_tpu_torch.ops.tables\n"
         "import huffman_tpu_torch.models.torch_ref_codec, huffman_tpu_torch.tools.kernel_ab\n"
+        "import huffman_tpu_torch.parallel, huffman_tpu_torch.parallel.sharded\n"
+        "import huffman_tpu_torch.parallel.distributed, huffman_tpu_torch.tools.bench_sharded\n"
+        "import torch, torch.distributed as dist\n"
+        "assert not dist.is_initialized(), 'importing the port started a process group'\n"
+        "assert not torch.cuda.is_initialized(), 'importing the port initialized CUDA'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'huffman_tpu')]\n"
         "print('BAD', bad)\n"
         "assert not bad\n"
@@ -129,6 +135,16 @@ CUDA_CALLS = {
         },
         64,
         statics=(1, 4, 0),
+    ),
+    "sharded_roundtrip": lambda: sharded.sharded_roundtrip(
+        _FakeCudaTensor((3, 64), torch.uint8), mesh=sharded.LocalMesh(), k=8, s=8, w32=5
+    ),
+    "sharded_decode": lambda: sharded.sharded_decode(
+        _FakeCudaTensor((3, 5, 8), torch.int32),
+        _FakeCudaTensor((3, 17), torch.int32),
+        _FakeCudaTensor((3, 16), torch.int32),
+        _FakeCudaTensor((3, 256), torch.int32),
+        mesh=sharded.LocalMesh(), k=8, s=8, w=4,
     ),
     "hist_variant": lambda: hist_variants.hist_variant(
         _FakeCudaTensor((1 << 19,), torch.uint8), "base"
