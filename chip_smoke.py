@@ -108,8 +108,24 @@ Phases (any failure exits non-zero; no phase failure is caught):
    one ``sharded_roundtrip`` of the 64 blocks by CUDA events, its
    device-busy share and each device operation.
 
+10. The block pipeline (``container.PIPELINE_DEPTH`` = 2 blocks in
+   flight).  With the counters zeroed just before, ``TorchCodec(device=
+   "cuda")`` compresses and decompresses six 16 MiB blocks: four biased,
+   a uniform one after the second (stored), and a ragged biased tail;
+   hist256, table_build, encode_lanes and decode_lanes must have
+   launched.  The container must equal the one written at depth 1 byte
+   for byte, each H record its block's solo ``serialize(encode_device)``,
+   and decompress must give the input back at both depths.  Times beside
+   the card: compress and decompress at depth 1 and 2 (median of 6 calls
+   in turns 1, 2, 2, 1, host clock), each device operation and the
+   device-busy share of one depth-2 compress.  Then the measurement tools
+   through their ``main()``, JSON to
+   ``chiprun_out/``: ``bench_streaming --fast``, ``bench_small --reps 16``,
+   ``probe_k``, ``probe_encode_stages`` and ``probe_batched --bs
+   16,64,160``; every row that has ``roundtrip_ok`` must hold it.
+
 The line before the last is a JSON object of the kernels (launches
-counted in phases 4, 4b, 7, 8 and 9; ms is the kernel's device time at the
+counted in phases 4, 4b, 7, 8, 9 and 10; ms is the kernel's device time at the
 single-block shapes, hist256_batch's at B = 160, hist256_onehot's in
 bf16 (the TPU's base variant) at 16 MiB; plain_ms the plain version's
 call; bound_ms the least time of the same work on an H100 at its
@@ -126,6 +142,7 @@ import contextlib
 import io
 import json
 import os
+import statistics
 import sys
 import tempfile
 import time
@@ -173,6 +190,11 @@ SB, SK = 1 << 20, 4096
 SN, SN_RANKS = 64 << 20, 16 << 20
 SHARDED_PATH = BATCHED_PATH
 RANK_SECONDS = 300  # the two ranks' limit, start-up included
+# The block pipeline (phase 10): four biased 16 MiB blocks with a uniform
+# one (stored) after the second, and a ragged biased tail: six blocks.
+PIPE_TAIL = (12 << 20) + 12345
+PIPE_KINDS = "HHSHHHC"
+OUT_DIR = "chiprun_out"  # the tools' JSON
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory
 # bytes/s and tensor-core operations/s by input type.
@@ -328,7 +350,14 @@ def main() -> None:
     from huffman_tpu_torch import TorchCodec, TorchRefCodec, cli, coding, container, golden, native
     from huffman_tpu_torch.parallel import ShardedCodec
     from huffman_tpu_torch.parallel.sharded import sharded_roundtrip
-    from huffman_tpu_torch.tools import bench_sharded
+    from huffman_tpu_torch.tools import (
+        bench_sharded,
+        bench_small,
+        bench_streaming,
+        probe_batched,
+        probe_encode_stages,
+        probe_k,
+    )
     from huffman_tpu_torch import format as ref_format
     from huffman_tpu_torch.constants import MAX_CODE_LEN
     from huffman_tpu_torch.models.torch_ref_codec import lane_layout, slice_order
@@ -1076,6 +1105,100 @@ def main() -> None:
           f"{step_busy / step_ms:.4f} of the call ({time.perf_counter() - t9:.1f} s for "
           "phase 9)", flush=True)
 
+    # 10. The block pipeline: TorchCodec's bytes API on an input of six
+    # blocks, two in flight (container.PIPELINE_DEPTH), counted; against
+    # one in flight and each block alone.
+    t10 = time.perf_counter()
+    biased10 = workloads.biased_u8(4 * N + PIPE_TAIL, 10)
+    uniform10 = np.random.default_rng(10).integers(0, 256, N, dtype=np.uint8)
+    raw10 = np.concatenate([biased10[: 2 * N], uniform10, biased10[2 * N :]]).tobytes()
+    pcodec = TorchCodec(device=dev)
+    _cuda.reset_launches()
+    blob10 = pcodec.compress(raw10)
+    back10 = pcodec.decompress(blob10)
+    torch.cuda.synchronize()
+    launches_c = dict(_cuda.LAUNCHES)
+    missing = [k for k in SINGLE_PATH if launches_c[k] == 0]
+    if missing:
+        raise AssertionError(f"the block pipeline never launched {missing}")
+    if back10 != raw10:
+        raise AssertionError("the six-block container does not decompress to its input")
+    depth = container.PIPELINE_DEPTH
+    container.PIPELINE_DEPTH = 1
+    blob10_1 = pcodec.compress(raw10)
+    back10_1 = pcodec.decompress(blob10)
+    container.PIPELINE_DEPTH = depth
+    if blob10_1 != blob10:
+        raise AssertionError("the container at depth 2 differs from the one at depth 1")
+    if back10_1 != raw10:
+        raise AssertionError("decompress at depth 1 does not give the input back")
+    _, _, recs10 = container.parse_records(blob10)
+    kinds10 = "".join(chr(kind) for kind, *_ in recs10)
+    if kinds10 != PIPE_KINDS:
+        raise AssertionError(f"record kinds {kinds10}, expected {PIPE_KINDS}")
+    for i, (kind, _, _, rec) in enumerate(recs10):
+        if kind == container.KIND_HUFF:
+            chunk = raw10[i * N : (i + 1) * N].ljust(N, b"\0")  # the tail's pad
+            solo = pcodec.serialize(pcodec.encode_device(
+                torch.frombuffer(bytearray(chunk), dtype=torch.uint8).to(dev)))
+            if solo != rec:
+                raise AssertionError(f"record {i} differs from its block's solo blob")
+    n10 = len(raw10)
+    print(f"pipeline: {n10} bytes in six 16 MiB blocks (records {kinds10}), container "
+          f"{len(blob10)} bytes equal at depth 2 and 1, every H record equals its block's "
+          "solo serialize(encode_device), decompress gives the input back at both depths",
+          flush=True)
+    print(f"launches in the pipeline phase: {json.dumps(launches_c)}", flush=True)
+    # Times after phases 5, 8 and 9's profiler windows: this phase comes
+    # last so that phases 1-9 keep their order, and the profiler's cost a
+    # launch (microseconds) is lost in a call that holds the host for tens
+    # of milliseconds a block.  The depths take turns (1, 2, 2, 1, three
+    # calls a turn): the host's times drift more than the gap between them.
+    gib10 = n10 / (1 << 30)
+    turns = {1: ([], []), 2: ([], [])}
+    for d in (1, 2, 2, 1):
+        container.PIPELINE_DEPTH = d
+        for _ in range(3):
+            turns[d][0].append(host_ms(lambda: pcodec.compress(raw10), reps=1))
+            turns[d][1].append(host_ms(lambda: pcodec.decompress(blob10), reps=1))
+    container.PIPELINE_DEPTH = depth
+    depth_ms = {d: tuple(statistics.median(t) for t in ts) for d, ts in turns.items()}
+    for d, (c_ms10, d_ms10) in depth_ms.items():
+        print(f"pipeline depth {d} (median of 6 in turns 1, 2, 2, 1, host clock; {card}): "
+              f"compress {c_ms10:.3f} ms = {gib10 / (c_ms10 / 1e3):.4f} GiB/s, decompress "
+              f"{d_ms10:.3f} ms = {gib10 / (d_ms10 / 1e3):.4f} GiB/s; compress calls "
+              f"{json.dumps([round(t, 3) for t in turns[d][0]])}, decompress calls "
+              f"{json.dumps([round(t, 3) for t in turns[d][1]])}")
+    ops10 = device_ops(lambda: pcodec.compress(raw10), reps=3)
+    busy10 = sum(op_ms for _, _, op_ms in ops10)
+    for name, count, op_ms in ops10:
+        print(f"pipeline compress depth 2 device operation: {name} x{count:g} {op_ms:.6f} ms")
+    print(f"pipeline compress depth 2 ({card}): device busy {busy10:.6f} ms = "
+          f"{busy10 / depth_ms[2][0]:.4f} of the call; depth 2 / depth 1: compress "
+          f"{depth_ms[2][0] / depth_ms[1][0]:.4f}, decompress "
+          f"{depth_ms[2][1] / depth_ms[1][1]:.4f}", flush=True)
+
+    # The measurement tools, each through its main(), JSON to OUT_DIR.
+    tool_out = lambda name: ["--out", os.path.join(OUT_DIR, f"{name}.json")]  # noqa: E731
+    quiet = io.StringIO()
+    with contextlib.redirect_stdout(quiet):
+        streaming = bench_streaming.main(["--fast", *tool_out("streaming")])
+        small = bench_small.main(["--reps", "16", *tool_out("results_small")])
+        ks = probe_k.main(tool_out("probe_k"))
+        stages = probe_encode_stages.main(tool_out("probe_encode_stages"))
+        pbatched = probe_batched.main(["--bs", "16,64,160", *tool_out("probe_batched")])
+    tool_rows = ([streaming["streaming_shared_table"]] + streaming["batched_100KiB_curve"]
+                 + [r for rows in small.values() for r in rows] + ks)
+    bad = [r for r in tool_rows if not r["roundtrip_ok"]]
+    if bad:
+        raise AssertionError(f"tool rows that do not round-trip: {bad}")
+    print(f"tool bench_streaming --fast ({card}): {json.dumps(streaming)}")
+    print(f"tool bench_small --reps 16 ({card}): {json.dumps(small)}")
+    print(f"tool probe_k ({card}): {json.dumps(ks)}")
+    print(f"tool probe_encode_stages ({card}): {json.dumps(stages)}")
+    print(f"tool probe_batched --bs 16,64,160 ({card}): {json.dumps(pbatched)}")
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+
     # Bounds at the shapes of `ms`: each input read once, each output
     # written once; the decode reads only the payload bits of its lanes.
     # table_build's tree is serial on one thread: for this run's n symbols,
@@ -1099,7 +1222,7 @@ def main() -> None:
             "source": src,
             "replaces": replaces,
             "launches": (launches[name] + launches_b[name] + launches_m[name]
-                         + launches_r[name] + launches_s[name]),
+                         + launches_r[name] + launches_s[name] + launches_c[name]),
             "max_abs_err": err[name],
             "ms": ms[name],
             "plain_ms": plain_ms[name],

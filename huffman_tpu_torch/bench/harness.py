@@ -65,6 +65,12 @@ def sustained_seconds(
     return max((tr - t1) / (reps - 1), 1e-9)
 
 
+def sustained_method(device) -> str:
+    """How `sustained_seconds` times a body on ``device``, for a row to
+    name."""
+    return "cuda graph replays" if torch.device(device).type == "cuda" else "host clock"
+
+
 def _graph_timer(step, dev, tries: int):
     """``measure(r)``: best seconds of r replays of ``step`` captured in
     one CUDA graph, by CUDA events."""

@@ -14,6 +14,13 @@ the trailer, the crc32 of the whole raw content.  Inputs larger than one
 block are split into blocks, the last padded to the block size when
 there are several (its pad is trimmed on decode); a block whose blob is
 not at least 8 bytes smaller than the raw bytes is stored.
+
+A device codec's blocks are pipelined, ``PIPELINE_DEPTH`` in flight, as
+the JAX package's container pipelines them: block i+1's upload and
+kernels are queued before block i is read back and serialized (or, on
+decode, before block i's output is read).  Every copy between the host
+and the card goes through `staging`, whose events let the host wait for
+block i alone; a blocking ``.cpu()`` would also wait for block i+1.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import struct
 import zlib
 
 from . import native
+from .staging import HostCopy
 
 MAGIC = b"HTPC"
 KIND_HUFF = 0x48  # 'H'
@@ -41,6 +49,14 @@ def pack(records: list[tuple[int, int, bytes]], block_size: int) -> bytes:
     return bytes(out)
 
 
+#: Device blocks kept in flight by the block pipelines below: 2 = double
+#: buffering, block i+1's device work and copies run while block i is
+#: serialized on the host.  Each 16 MiB block in flight holds ~48 MiB on
+#: the card (its bytes and its (W, K) words) and ~32 MiB of pinned host
+#: memory for its words.
+PIPELINE_DEPTH = 2
+
+
 def _chunks(raw: bytes, block_size: int):
     """(pos, raw_len, chunk) per block; one empty block for empty input."""
     n = len(raw)
@@ -56,15 +72,41 @@ def _chunks(raw: bytes, block_size: int):
 
 
 def compress_blocks(raw: bytes, codec, block_size: int = DEFAULT_BLOCK) -> bytes:
-    """Each block through ``codec._compress_blob``, with stored fallback
-    and the crc trailer."""
+    """Split, pad to uniform, compress each block with stored fallback,
+    and append the crc trailer.
+
+    A codec with ``encode_device`` and ``serialize`` is pipelined: block
+    i+1 is uploaded, encoded and staged for its copy back
+    (``TorchCompressed.stage``) before block i is serialized, with at most
+    `PIPELINE_DEPTH` blocks in flight.  Any other codec compresses block
+    by block through ``_compress_blob`` (or ``compress``)."""
     records = []
-    for pos, raw_len, chunk in _chunks(raw, block_size):
-        blob = codec._compress_blob(chunk) if raw_len else b""
+    enc = getattr(codec, "encode_device", None)
+    ser = getattr(codec, "serialize", None)
+    piped = enc is not None and ser is not None
+
+    def finish(pos, raw_len, comp_or_blob):
+        blob = ser(comp_or_blob) if piped else comp_or_blob
         if raw_len and len(blob) >= raw_len + 8:
             records.append((KIND_STORED, raw_len, raw[pos : pos + raw_len]))
         else:
             records.append((KIND_HUFF, raw_len, blob))
+
+    if piped:
+        pending = []  # (pos, raw_len, staged block), oldest first
+        for pos, raw_len, chunk in _chunks(raw, block_size):
+            if raw_len:
+                pending.append((pos, raw_len, enc(codec.upload(chunk)).stage()))
+            else:
+                records.append((KIND_HUFF, 0, b""))
+            while len(pending) >= PIPELINE_DEPTH:
+                finish(*pending.pop(0))
+        while pending:
+            finish(*pending.pop(0))
+    else:
+        one = getattr(codec, "_compress_blob", codec.compress)
+        for pos, raw_len, chunk in _chunks(raw, block_size):
+            finish(pos, raw_len, one(chunk) if raw_len else b"")
     records.append(crc_record(raw))
     return pack(records, block_size)
 
@@ -130,10 +172,39 @@ def decode_record(kind: int, kx: int, raw_len: int, rec: bytes, codec) -> bytes:
 
 def decompress_blocks(data: bytes, codec) -> bytes:
     """Inverse of `compress_blocks`; checks the total size and the crc
-    trailer when there is one."""
+    trailer when there is one.
+
+    With a codec that has ``decode_device`` and ``deserialize``, each 'H'
+    record is parsed, uploaded and its decode queued up to
+    `PIPELINE_DEPTH` ahead of reading the oldest output back; a record of
+    another kind first flushes the blocks in flight, so bytes stay in
+    record order."""
     _, total_raw, records = parse_records(data)
-    out = b"".join(decode_record(kind, kx, rl, rec, codec) for kind, kx, rl, rec in records)
-    if len(out) != total_raw:
-        raise ValueError(f"container truncated: decoded {len(out)} of {total_raw} bytes")
-    check_crc(records, out)
-    return out
+    dec = getattr(codec, "decode_device", None) if codec is not None else None
+    des = getattr(codec, "deserialize", None) if codec is not None else None
+    out = []
+    if dec is not None and des is not None:
+        live = []  # (queued host copy of a block's output, raw_len), oldest first
+
+        def flush_one():
+            host, raw_len = live.pop(0)
+            out.append(host.wait()[0][:raw_len].tobytes())
+
+        for kind, kx, raw_len, rec in records:
+            if kind == KIND_HUFF and raw_len:
+                live.append((HostCopy(dec(des(rec))), raw_len))
+                while len(live) >= PIPELINE_DEPTH:
+                    flush_one()
+            else:
+                while live:
+                    flush_one()
+                out.append(decode_record(kind, kx, raw_len, rec, codec))
+        while live:
+            flush_one()
+    else:
+        out = [decode_record(kind, kx, raw_len, rec, codec) for kind, kx, raw_len, rec in records]
+    result = b"".join(out)
+    if len(result) != total_raw:
+        raise ValueError(f"container truncated: decoded {len(result)} of {total_raw} bytes")
+    check_crc(records, result)
+    return result

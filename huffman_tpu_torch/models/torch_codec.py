@@ -37,6 +37,7 @@ from ..ops.decode_bits import decode_lanes, decode_lanes_batch, decode_tables_bi
 from ..ops.encode import encode_lanes, encode_lanes_batch
 from ..ops.lookup import histogram256, histogram256_batch, table_hist
 from ..ops.table_build import build_coding_device, build_coding_device_batch
+from ..staging import HostCopy, PinnedRing
 
 MAGIC = 0x48545033  # 'HTP3'
 #: Header flag (top byte of the len_mask word): compact bit counts and a
@@ -136,20 +137,41 @@ class TorchCompressed:
     k: int
     tables: dict  # coding tensors (ops.table_build.build_coding_device keys)
     _meta: dict | None = None
+    _host: HostCopy | None = None  # once staged: packed metadata, bit counts, words
+
+    def _packed_meta(self) -> torch.Tensor:
+        t = self.tables
+        return torch.cat(
+            [
+                self.bit_counts.max().view(1).to(torch.int32),
+                t["num_syms"].view(1).to(torch.int32),
+                t["len_count"].to(torch.int32),
+                t["sorted_syms"].to(torch.int32),
+            ]
+        )
+
+    def stage(self) -> TorchCompressed:
+        """Queue the copies of the block's metadata, bit counts and words
+        to pinned host memory, with an event after them (`staging`), and
+        return the block.  The block pipeline calls it right after the
+        block's kernels, before the next block's are queued, so `meta` and
+        `TorchCodec.serialize` then wait for this block alone."""
+        if self._host is None:
+            self._host = HostCopy(self._packed_meta(), self.bit_counts, self.words)
+        return self
+
+    def host_arrays(self) -> tuple[np.ndarray, np.ndarray]:
+        """(bit counts (K,), words (W, K)) int32 on the host, staged
+        first if they were not."""
+        _, bits, words = self.stage()._host.wait()
+        return bits, words
 
     def meta(self) -> dict:
         """Host metadata (max_bits, l_min, num_syms, len_count,
-        sorted_syms), fetched in one device-to-host copy and cached."""
+        sorted_syms), cached: from the staged copy, or else fetched alone
+        in one device-to-host copy."""
         if self._meta is None:
-            t = self.tables
-            packed = torch.cat(
-                [
-                    self.bit_counts.max().view(1).to(torch.int32),
-                    t["num_syms"].view(1).to(torch.int32),
-                    t["len_count"].to(torch.int32),
-                    t["sorted_syms"].to(torch.int32),
-                ]
-            ).cpu().numpy()
+            packed = (self._host or HostCopy(self._packed_meta())).wait()[0]
             lc = packed[2 : 2 + MAX_CODE_LEN + 1]
             nz = np.nonzero(lc[1:])[0]
             self._meta = {
@@ -213,6 +235,9 @@ class TorchCodec:
         self.k = k
         self.hist_stride = hist_stride
         self.device = torch.device(device)
+        # Host buffers of the uploads (`upload`, `deserialize`), one for
+        # each block the container keeps in flight.
+        self._uploads = PinnedRing(self.device, container.PIPELINE_DEPTH)
 
     def _hist_stride(self, n: int) -> int:
         if self.hist_stride is not None:
@@ -227,6 +252,14 @@ class TorchCodec:
         return f"Torch<{self.k if self.k is not None else 'auto'}>"
 
     # ---------- device API ----------
+
+    def upload(self, raw: bytes) -> torch.Tensor:
+        """``raw`` as a (n,) uint8 tensor on the codec's device, copied
+        through a pinned host buffer: on a card the copy is queued and the
+        call returns without waiting for the stream."""
+        return self._uploads.upload(
+            len(raw), lambda buf: np.copyto(buf, np.frombuffer(raw, dtype=np.uint8))
+        )
 
     def build_tables(self, sample: torch.Tensor, full_alphabet: bool = True) -> dict:
         """A shared coding from sample bytes, for `encode_device(tables=)`.
@@ -351,8 +384,7 @@ class TorchCodec:
     # ---------- bytes API ----------
 
     def _compress_blob(self, raw: bytes) -> bytes:
-        data = torch.from_numpy(np.frombuffer(raw, dtype=np.uint8).copy())
-        return self.serialize(self.encode_device(data.to(self.device)))
+        return self.serialize(self.encode_device(self.upload(raw)))
 
     def compress(self, raw: bytes) -> bytes:
         n = len(raw)
@@ -367,7 +399,7 @@ class TorchCodec:
     def decompress(self, blob: bytes) -> bytes:
         if blob[:4] == container.MAGIC:
             return container.decompress_blocks(blob, self)
-        return self.decode_device(self.deserialize(blob)).cpu().numpy().tobytes()
+        return HostCopy(self.decode_device(self.deserialize(blob))).wait()[0].tobytes()
 
     # ---------- serialization ----------
 
@@ -379,12 +411,13 @@ class TorchCodec:
         smaller of the two), "flat" or "huff"."""
         if counts not in ("auto", "flat", "huff"):
             raise ValueError(f"unknown counts encoding {counts!r}")
+        bits, words = comp.host_arrays()  # waits for this block's copies alone
+        bits = bits.astype(np.int64)
         m = comp.meta()
         k = comp.k
         num_syms = m["num_syms"]
         len_count = m["len_count"]
         len_mask = sum(1 << ln for ln in range(MAX_CODE_LEN + 1) if len_count[ln])
-        bits = comp.bit_counts.cpu().numpy().astype(np.int64)
         wide = (not compact) and bool(bits.max(initial=0) >= (1 << 16))
         flags = (int(wide) << 24) | (FLAG_COMPACT if compact else 0)
         out = bytearray(struct.pack("<IIII", MAGIC, comp.raw_size, k, len_mask | flags))
@@ -394,7 +427,7 @@ class TorchCodec:
             # Zero-length codes: bit counts and payload are implicit.
             return bytes(out)
 
-        words = comp.words.cpu().numpy().view(np.uint32)  # (W, K) lane words
+        words = words.view(np.uint32)  # (W, K) lane words
         w = words.shape[0]
         lane_bytes = (
             np.ascontiguousarray(words.T).astype(">u4").view(np.uint8).reshape(k, 4 * w)
@@ -578,17 +611,29 @@ class TorchCodec:
     def _finish_deserialize(
         self, raw_size, k, len_count, sorted_syms, bits, lane_bytes
     ) -> TorchCompressed:
-        dev = self.device
         num_syms = len(sorted_syms)
-        words = lane_bytes.view(">u4").astype(np.uint32).T.copy().view(np.int32)
+        wmax = lane_bytes.shape[1] // 4
         t = decode_tables_bitserial(len_count, sorted_syms)
-        as_dev = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa: E731
+        # One upload of int32s: the (W, K) words, byte-swapped and
+        # transposed straight into the staging buffer, then the bit counts
+        # and the tables.
+        parts = [bits, t["e_bound"], t["g_rank"], t["syms"], len_count, [num_syms]]
+        offs = np.cumsum([0, wmax * k] + [len(p) for p in parts])
+
+        def fill(buf):
+            i32 = buf.view(np.int32)
+            np.copyto(i32[: wmax * k].view(np.uint32).reshape(wmax, k), lane_bytes.view(">u4").T)
+            for p, lo, hi in zip(parts, offs[1:], offs[2:]):
+                i32[lo:hi] = p
+
+        flat = self._uploads.upload(int(offs[-1]) * 4, fill).view(torch.int32)
+        piece = [flat[lo:hi] for lo, hi in zip(offs[:-1], offs[1:])]
         tables = {
-            "e_bound": as_dev(t["e_bound"]),
-            "g_rank": as_dev(t["g_rank"]),
-            "sorted_syms": as_dev(t["syms"]),
-            "len_count": as_dev(len_count),
-            "num_syms": torch.tensor(num_syms, dtype=torch.int32, device=dev),
+            "e_bound": piece[2],
+            "g_rank": piece[3],
+            "sorted_syms": piece[4],
+            "len_count": piece[5],
+            "num_syms": piece[6][0],
         }
         meta = {
             "max_bits": int(bits.max()) if k else 0,
@@ -598,8 +643,8 @@ class TorchCodec:
             "sorted_syms": t["syms"],
         }
         return TorchCompressed(
-            words=torch.from_numpy(words).to(dev),
-            bit_counts=torch.from_numpy(bits.astype(np.int32)).to(dev),
+            words=piece[0].view(wmax, k),
+            bit_counts=piece[1],
             raw_size=raw_size,
             k=k,
             tables=tables,

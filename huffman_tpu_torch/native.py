@@ -58,6 +58,8 @@ def load() -> ctypes.CDLL:
         lib.hh_decompress.argtypes = [ctypes.c_char_p, sz, ctypes.c_int, vp, sz]
         lib.hh_raw_size.restype = sz
         lib.hh_raw_size.argtypes = [ctypes.c_char_p, sz]
+        lib.hh_histogram.restype = None
+        lib.hh_histogram.argtypes = [vp, sz, vp]
         lib.hp_pack_lane_bits.restype = i64
         lib.hp_pack_lane_bits.argtypes = [vp, vp, i64, i64, vp]
         lib.hp_unpack_lane_bits.restype = i64
@@ -77,6 +79,29 @@ def _lib_or_none():
         return load()
     except (RuntimeError, OSError):
         return None
+
+
+def available() -> bool:
+    """Whether the host library builds and loads here."""
+    return _lib_or_none() is not None
+
+
+def histogram(data) -> np.ndarray:
+    """(256,) uint64 counts of each byte value of ``data`` (bytes or a
+    uint8 array), by the host library, else by numpy (``coding``)."""
+    arr = np.ascontiguousarray(
+        np.frombuffer(data, dtype=np.uint8)
+        if isinstance(data, (bytes, bytearray, memoryview))
+        else np.asarray(data, dtype=np.uint8).reshape(-1)
+    )
+    lib = _lib_or_none()
+    if lib is None:
+        from . import coding
+
+        return coding.histogram(arr).astype(np.uint64)
+    out = np.zeros(256, dtype=np.uint64)
+    lib.hh_histogram(arr.ctypes.data, arr.shape[0], out.ctypes.data)
+    return out
 
 
 def compress(raw: bytes, k: int) -> bytes:

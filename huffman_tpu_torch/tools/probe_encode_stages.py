@@ -1,0 +1,92 @@
+"""Stage split of `TorchCodec.encode_device` on the biased block.
+
+Counterpart: ``tools/probe_encode_stages.py``.  Each stage is timed alone
+by `bench.harness.sustained_seconds` (CUDA-graph replays on a card):
+
+* ``dep``: the carried dependency alone (``data + pert``, a rewrite of
+  the block), which every body below but ``table`` pays besides its stage;
+* ``hist/1``: hist256's full count of the block;
+* ``hist/S``: the table histogram at the codec's ``hist_stride`` for this
+  size (the 1-in-32 row sample from 4 MiB up), as ``encode_device`` runs it;
+* ``table``: `build_coding_device` from a histogram;
+* ``kernel``: `encode_lanes` from a table;
+* ``full``: the whole ``encode_device``.
+
+Each stage's device time is its row less ``dep`` (``table`` carries the
+dependency on 256 counts only).
+
+    python3 -m huffman_tpu_torch.tools.probe_encode_stages [n_mib] [--out bench_out/probe_encode_stages.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import torch
+
+from ..bench.harness import sustained_method, sustained_seconds
+from ..bench.workloads import biased_u8
+from ..constants import TPU_MAX_CODE_LEN
+from ..models.torch_codec import TorchCodec
+from ..ops.encode import encode_lanes
+from ..ops.lookup import histogram256, table_hist
+from ..ops.table_build import build_coding_device
+
+GIB = 1 << 30
+
+
+def main(argv=None) -> list[dict]:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("n_mib", nargs="?", type=float, default=16.0)
+    ap.add_argument("--reps", type=int, default=64)
+    ap.add_argument("--out", default="bench_out/probe_encode_stages.json")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    n = int(args.n_mib * (1 << 20))
+    codec = TorchCodec(device=device)
+    k = codec._lanes(n)
+    s = -(-n // k)
+    w32 = (s * TPU_MAX_CODE_LEN + 31) // 32 + 1
+    hs = codec._hist_stride(n)
+    block = torch.from_numpy(biased_u8(n)).to(device)
+    data = block if s * k == n else torch.nn.functional.pad(block, (0, s * k - n))
+    hist0 = histogram256(data)
+    enc_table = build_coding_device(hist0)["enc_table"]
+    print(f"n={n} k={k} s={s} w32={w32} hist_stride={hs} ({sustained_method(device)})", flush=True)
+
+    def table(pert):
+        return build_coding_device(hist0 + pert.to(torch.int32))["enc_table"].sum()
+
+    def full(pert):
+        c = codec.encode_device(block + pert)
+        return c.bit_counts.sum() + c.tables["enc_table"].sum()
+
+    stages = [
+        ("dep", lambda pert: (data + pert)[0]),
+        ("hist/1", lambda pert: table_hist(data + pert, 1).sum()),
+        (f"hist/{hs}", lambda pert: table_hist(data + pert, hs).sum()),
+        ("table", table),
+        ("kernel", lambda pert: encode_lanes(data + pert, enc_table, s, k, w32)[1].sum()),
+        ("full", full),
+    ]
+    rows = []
+    for name, body in stages:
+        sec = sustained_seconds(lambda pert, body=body: body(pert).to(torch.float32),
+                                reps=args.reps, tries=3, device=device)
+        rows.append({"stage": name, "ms": sec * 1e3, "GiB_s": n / sec / GIB,
+                     "timing": sustained_method(device)})
+        print(f"{name:8s} {sec * 1e3:10.6f} ms {n / sec / GIB:10.3f} GiB/s", flush=True)
+
+    os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump({"n": n, "k": k, "s": s, "w32": w32, "hist_stride": hs, "stages": rows}, f,
+                  indent=1)
+    print(json.dumps({"written": args.out}))
+    return rows
+
+
+if __name__ == "__main__":
+    main()

@@ -44,6 +44,10 @@ def test_import_leaves_out_jax_and_huffman_tpu():
         "import huffman_tpu_torch.models.torch_ref_codec, huffman_tpu_torch.tools.kernel_ab\n"
         "import huffman_tpu_torch.parallel, huffman_tpu_torch.parallel.sharded\n"
         "import huffman_tpu_torch.parallel.distributed, huffman_tpu_torch.tools.bench_sharded\n"
+        "import huffman_tpu_torch.staging, huffman_tpu_torch.utils.debug\n"
+        "import huffman_tpu_torch.tools.bench_streaming, huffman_tpu_torch.tools.bench_small\n"
+        "import huffman_tpu_torch.tools.probe_k, huffman_tpu_torch.tools.probe_encode_stages\n"
+        "import huffman_tpu_torch.tools.probe_batched\n"
         "import torch, torch.distributed as dist\n"
         "assert not dist.is_initialized(), 'importing the port started a process group'\n"
         "assert not torch.cuda.is_initialized(), 'importing the port initialized CUDA'\n"
