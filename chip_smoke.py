@@ -56,9 +56,10 @@ Phases (any failure exits non-zero; no phase failure is caught):
    its plain version and ``torch.bincount`` (the library yardstick).
 6. hist256_onehot (the histogram race's kernel) in each MMA type (s8,
    bf16, tf32) must equal its plain version and hist256's full count on
-   three 16 MiB blocks (biased, uniform, and constant, whose one bin is
-   2^24) and on a 256 MiB block, where every warp flushes its sums
-   mid-loop; a length that is not a multiple of 2^19 must raise.
+   five 16 MiB blocks (biased, uniform, constant, whose one bin is 2^24,
+   all 0xFF, whose nibbles all take the lookups' msb-replicate path, and
+   every byte value in turn, which reaches every row) and on a 256 MiB
+   block, where every warp flushes its sums mid-loop; a length that is not a multiple of 2^19 must raise.
 7. The measurement path at full width, with the launch counters zeroed
    just before: ``bench_torch_codec`` on the 16 MiB biased block (round
    trip, ratio len(blob) / n of phase 4), ``run_suite`` of the biased and
@@ -778,6 +779,8 @@ def main() -> None:
         "biased": data,
         "uniform": torch.from_numpy(uniform_np).to(dev),
         "constant": torch.full((N,), 0xA5, dtype=torch.uint8, device=dev),
+        "all 0xFF": torch.full((N,), 0xFF, dtype=torch.uint8, device=dev),
+        "every byte value in turn": torch.arange(N, device=dev).to(torch.uint8),
         "biased x16 (256 MiB)": data.repeat(16),
     }
     err["hist256_onehot"] = 0
@@ -793,6 +796,19 @@ def main() -> None:
                 raise AssertionError(f"hist256_onehot {mma} {bname} differs from hist256's count")
     if int(table_hist(blocks6["constant"], 1)[0xA5]) != 1 << 24:
         raise AssertionError("the constant block's bin is not 2^24")
+    if not torch.equal(table_hist(blocks6["every byte value in turn"], 1),
+                       torch.full((256,), N // 256, dtype=torch.int32, device=dev)):
+        raise AssertionError("the block of every byte value in turn is not N / 256 a bin")
+    # The C entry takes any multiple of 64; lengths off the 512-byte
+    # iteration take the kernel's tail steps.
+    tail_out = torch.empty(256, dtype=torch.int32, device=dev)
+    for n_tail in (64, 448, CHUNK + 192):
+        want_tail = torch.bincount(data[:n_tail], minlength=256).to(torch.int32)
+        for mma in MMA_TYPES:
+            _cuda.launch("hist256_onehot", data.data_ptr(), n_tail, MMA_TYPES.index(mma),
+                         tail_out.data_ptr(), _cuda.stream(data))
+            if not torch.equal(tail_out, want_tail):
+                raise AssertionError(f"hist256_onehot {mma} of {n_tail} bytes differs from bincount")
     try:
         hist_variant(data[: N - 64], "s8")
     except ValueError:
@@ -804,8 +820,10 @@ def main() -> None:
         raise AssertionError("phase 6 never launched hist256_onehot")
     del blocks6
     print(f"hist256_onehot: s8, bf16 and tf32 equal their plain versions and hist256's "
-          f"full count on the biased, uniform and constant (bin 2^24) 16 MiB blocks and "
-          f"a 256 MiB block; a length off the {CHUNK}-byte grid raises", flush=True)
+          f"full count on the biased, uniform, constant (bin 2^24), all-0xFF and "
+          f"every-byte-value 16 MiB blocks and a 256 MiB block; the C entry equals bincount "
+          f"at 64, 448 and {CHUNK + 192} bytes; a length off the {CHUNK}-byte grid raises",
+          flush=True)
 
     # 7. The measurement path at full width; the counters cover this
     # phase only.

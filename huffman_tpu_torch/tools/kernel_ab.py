@@ -7,7 +7,7 @@ Usage:
       [--kernels NAME ...]
 
 DIR holds the other version's ``table_build.cu``, ``decode_lanes.cu``,
-``encode_lanes.cu`` and ``hist256.cu``, for example the parent commit's
+``encode_lanes.cu``, ``hist256.cu`` and ``hist256_onehot.cu``, for example the parent commit's
 ``huffman_tpu_torch/csrc`` unpacked by ``git archive`` into a gitignored
 directory such as ``checkout/``; such a copy is not committed.  Both
 versions are built with the nvcc flags of ``ops._cuda`` into
@@ -25,11 +25,15 @@ the same C entry points on the same inputs, made on the card from seeds:
                 past 16-byte alignment
   hist256       the 16 MiB biased block's sampled and full counts, and
                 the full count of a 1 MiB block
+  hist256_onehot  the 16 MiB uniform block (the histogram race's) and the
+                16 MiB biased block, in each MMA type (s8, bf16, tf32)
 
 ``--kernels`` limits the run to some of them.  Both versions must equal
 the plain versions on every case.  Then each case is timed in two rounds
 of parent, change, change, parent: device milliseconds per launch from
-the profiler (mean of 50).  After them:
+the profiler (mean of 50).  After them, for hist256_onehot, each
+version's SASS (``cuobjdump -sass``): the instructions of one 64-byte
+warp step of each MMA type's main loop (`sass_step_counts`); and:
 
   phases  table_build of each version with a ``clock64()`` stamp, taken
           by thread 0 of each block, before every comment line indented
@@ -57,6 +61,7 @@ import json
 import os
 import re
 import statistics
+import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -69,6 +74,7 @@ from ..constants import TPU_MAX_CODE_LEN as L
 from ..ops import _cuda
 from ..ops.decode_bits import decode_lanes_batch_plain
 from ..ops.encode import encode_lanes, encode_lanes_batch, encode_lanes_batch_plain
+from ..ops.hist_variants import MMA_TYPES, hist_variant_plain
 from ..ops.lookup import _geometry, histogram256_batch, table_hist, table_hist_plain
 from ..ops.table_build import (
     TABLE_LEN,
@@ -77,8 +83,9 @@ from ..ops.table_build import (
     build_coding_flat_batch,
     build_coding_plain_batch,
 )
+from .hist_experiments import race_block
 
-KERNELS = ("table_build", "decode_lanes", "encode_lanes", "hist256")
+KERNELS = ("table_build", "decode_lanes", "encode_lanes", "hist256", "hist256_onehot")
 ORDER = ("parent", "change", "change", "parent")
 ROUNDS = 2
 N, K = 16 << 20, 131072  # the single-block path's block and lanes
@@ -114,6 +121,67 @@ ENCODE_SPLIT = {
 
 # Constants of encode_lanes.cu that its sweep sets to other values.
 ENCODE_SWEEP = {"kTileLanes": (64, 256), "kStageRows": (16, 64), "kGroupRows": (8, 32)}
+
+
+# MMA instructions a thread issues per 64 bytes in hist256_onehot, by MMA
+# type (the C entry's numbering): two n-tiles, k = 32, 16 or 8 bytes each.
+ONEHOT_MMAS = {0: 4, 1: 8, 2: 16}
+_SASS_FN = re.compile(r"Function : (\S*hist256_onehot_kernelILi(\d)E\S*)")
+_SASS_INSN = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T\d]\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+
+
+def sass_step_counts(sass: str) -> dict:
+    """{MMA type: {opcode: count, ..., "total": n}} for each hist256_onehot
+    kernel in ``cuobjdump -sass`` text: the instructions of its main loop
+    (the widest predicated backward branch) without the flush block that the loop
+    branches over, divided by the loop's 64-byte warp steps (its MMA
+    instructions over `ONEHOT_MMAS`)."""
+    out = {}
+    for part in re.split(r"(?=\s*Function : )", sass):
+        fn = _SASS_FN.search(part)
+        if not fn:
+            continue
+        insns, labels, pending = [], {}, []
+        for line in part.splitlines():
+            lab = _SASS_LABEL.match(line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            m = _SASS_INSN.search(line)
+            if m:
+                addr = int(m.group(1), 16)
+                labels.update({name: addr for name in pending})
+                pending = []
+                insns.append((addr, m.group(3), m.group(4), bool(m.group(2))))
+
+        def target(ops):
+            t = re.search(r"0x([0-9a-f]+)|(\.L_x_\d+)", ops)
+            return None if t is None else int(t.group(1), 16) if t.group(1) else labels[t.group(2)]
+
+        branches = [(a, target(o), p) for a, op, o, p in insns if op.startswith("BRA")]
+        # Unconditional backward branches return from the divergent-shuffle
+        # paths placed after the kernel's end; the loop's is predicated.
+        lo, hi = max(((t, a) for a, t, p in branches if p and t is not None and t < a),
+                     key=lambda r: r[1] - r[0])
+        body = [(a, op) for a, op, _, _ in insns if lo <= a <= hi]
+        atoms = [a for a, op in body if op.startswith("ATOMS")]
+        if atoms:
+            skip = min(((a, t) for a, t, _ in branches
+                        if lo <= a < atoms[0] and t is not None and t > atoms[-1]),
+                       key=lambda r: r[1])
+            body = [(a, op) for a, op in body if not skip[0] < a < skip[1]]
+        counts = {}
+        for _, op in body:
+            base = op.split(".")[0]
+            counts[base] = counts.get(base, 0) + 1
+        mmas = counts.get("IMMA", 0) + counts.get("HMMA", 0)
+        steps = mmas / ONEHOT_MMAS[int(fn.group(2))]
+        per = {k: v / steps for k, v in sorted(counts.items(), key=lambda kv: -kv[1])}
+        per["total"] = len(body) / steps
+        out[("s8", "bf16", "tf32")[int(fn.group(2))]] = per
+    return out
 
 
 def _kernel_body(src: str, name: str) -> tuple[int, int]:
@@ -271,6 +339,16 @@ def _cases(dev, kernels) -> dict:
 
         return "hist256", run, table_hist_plain(data, stride)
 
+    def onehot_case(data, mma):
+        out = torch.empty(256, dtype=torch.int32, device=dev)
+
+        def run(fn):
+            _check(fn(data.data_ptr(), data.shape[0], MMA_TYPES.index(mma), out.data_ptr(),
+                      stream()))
+            return out
+
+        return "hist256_onehot", run, hist_variant_plain(data, mma)
+
     s, w32 = N // K, (N // K * L + 31) // 32 + 1
     data = torch.from_numpy(workloads.biased_u8(N, 0)).to(dev)
     hist = table_hist(data, 32)
@@ -310,6 +388,11 @@ def _cases(dev, kernels) -> dict:
         cases["hist256 sampled 16 MiB"] = hist_case(data, 32)
         cases["hist256 full 16 MiB"] = hist_case(data, 1)
         cases["hist256 full 1 MiB"] = hist_case(data[: 1 << 20], 1)
+    if "hist256_onehot" in kernels:
+        uniform = torch.from_numpy(race_block(N)).to(dev)
+        for bname, blk in (("uniform", uniform), ("biased", data)):
+            for mma in MMA_TYPES:
+                cases[f"hist256_onehot {mma} {bname} 16 MiB"] = onehot_case(blk, mma)
     return cases
 
 
@@ -392,7 +475,6 @@ def main(argv=None) -> None:
             if not torch.equal(run(fns[version][kernel]), want):
                 raise AssertionError(f"{version} {cname} differs from the plain version")
     print("both versions equal the plain versions on every case", flush=True)
-
     times = {c: {v: [] for v in sources} for c in cases}
     for _ in range(ROUNDS):
         for version in ORDER:
@@ -404,6 +486,19 @@ def main(argv=None) -> None:
         ratio = statistics.mean(by["change"]) / statistics.mean(by["parent"])
         print(f"ab {cname}: parent, change, change, parent = {turns} ms "
               f"(change / parent {ratio:.3f})", flush=True)
+
+    sass = {}
+    if "hist256_onehot" in kernels:
+        tool = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+        for version in sources:
+            lib = built[_tag(version, "hist256_onehot")][1]._name
+            text = subprocess.run([tool, "-sass", lib], check=True, capture_output=True,
+                                  text=True).stdout
+            sass[version] = sass_step_counts(text)
+            for mma, c in sass[version].items():
+                ops = ", ".join(f"{k} {v:g}" for k, v in c.items() if k != "total")
+                print(f"sass {version} hist256_onehot {mma}: {c['total']:g} instructions "
+                      f"a 64-byte warp step ({ops})", flush=True)
 
     phases = {}
     for version in labels:
@@ -445,7 +540,7 @@ def main(argv=None) -> None:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "ab": times, "phases": phases, "split": split,
-                       "sweep": sweep}, f, indent=1)
+                       "sweep": sweep, "sass": sass}, f, indent=1)
 
 
 def _interleave(by: dict, rounds: int) -> list[float]:

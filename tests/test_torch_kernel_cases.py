@@ -250,3 +250,28 @@ def test_kernel_ab_covers_the_redesigned_kernels():
     assert {"encode_lanes", "hist256"} <= set(kernel_ab.KERNELS)
     for name in kernel_ab.KERNELS:
         assert f'extern "C" int {name}_launch(' in _source(name)
+
+
+def test_kernel_ab_races_hist256_onehot():
+    from huffman_tpu_torch.ops import _cuda
+    from huffman_tpu_torch.tools import kernel_ab
+
+    assert "hist256_onehot" in kernel_ab.KERNELS
+    assert len(_cuda._ARGTYPES["hist256_onehot"]) == 5
+    assert 'extern "C" int hist256_onehot_launch(const void* data, long long n, int variant,' \
+        in _source("hist256_onehot")
+
+
+def test_kernel_ab_counts_the_sass_of_a_warp_step():
+    from huffman_tpu_torch.tools import kernel_ab
+
+    lines = ["MOV R1, c[0x0][0x28]"]  # before the loop
+    lines += ["PRMT R2, R3, R4, R5", "SHFL.IDX PT, R6, R7, R8, 0x1f"] * 2  # the loop: 0x10
+    lines += ["IMMA.16832.S8.S8 R8, R2.ROW, R4.COL, R8"] * 8
+    lines += ["@!P0 BRA 0x100", "ATOMS.ADD RZ, [R9], R10", "ATOMS.ADD RZ, [R9+0x4], R10"]
+    lines += ["IADD3 R11, R11, 0x1, RZ", "@P1 BRA 0x10", "EXIT"]
+    sass = "\tFunction : _ZN12_GLOBAL__N_121hist256_onehot_kernelILi0EEEvPKjxPi\n" + "\n".join(
+        f"        /*{16 * i:04x}*/                   {ln} ;" for i, ln in enumerate(lines))
+    counts = kernel_ab.sass_step_counts(sass)["s8"]
+    assert counts["total"] == 15 / 2 and counts["IMMA"] == 4 and counts["PRMT"] == 1
+    assert "ATOMS" not in counts and "MOV" not in counts and "EXIT" not in counts
