@@ -12,8 +12,10 @@ Phases (any failure exits non-zero; no phase failure is caught):
    on the card, at the single-block path's shapes (16 MiB biased block,
    S = 128, K = 131072), must equal its plain PyTorch version exactly;
    table_build also on the named tables of ``bench.kernel_cases``, and
-   decode_lanes on every 15-bit window (2^15 lanes, s = 4) of five
-   tables from 0- to 15-bit codes and on the escape-heavy 16 MiB block
+   decode_lanes on the first w rows of the words (the benchmark's decode
+   body; w from ``decode_statics``), which must give the bytes of all W,
+   on every 15-bit window (2^15 lanes, s = 4) of five tables from 0- to
+   15-bit codes and on the escape-heavy 16 MiB block
    (the Fibonacci table fed its 20 symbols uniformly), which must also
    round-trip; encode_lanes on ``kernel_cases.encode_cases``, which
    reach every path of the kernel (the lane-skewed and escape-heavy
@@ -62,7 +64,8 @@ Phases (any failure exits non-zero; no phase failure is caught):
    block, where every warp flushes its sums mid-loop; a length that is not a multiple of 2^19 must raise.
 7. The measurement path at full width, with the launch counters zeroed
    just before: ``bench_torch_codec`` on the 16 MiB biased block (round
-   trip, ratio len(blob) / n of phase 4), ``run_suite`` of the biased and
+   trip, ratio len(blob) / n of phase 4; its decode body over the first
+   w rows of words), ``run_suite`` of the biased and
    uniform workloads at 4 MiB over the suite's rows
    (``tools.run_benchmarks.suite_codecs``, every row must round-trip),
    and ``race(16 MiB)`` (every row OK); the counters of hist256_onehot,
@@ -124,6 +127,15 @@ Phases (any failure exits non-zero; no phase failure is caught):
    ``chiprun_out/``: ``bench_streaming --fast``, ``bench_small --reps 16``,
    ``probe_k``, ``probe_encode_stages`` and ``probe_batched --bs
    16,64,160``; every row that has ``roundtrip_ok`` must hold it.
+11. The benchmark entry: ``python3 bench_torch.py`` (the supervisor) in a
+   child process under a 300 s limit.  Its last stdout line must have a
+   value, ``roundtrip_ok``, ratio 2.1626, ratio_payload 2.1916, k_lanes
+   131072 and launches of hist256, table_build, encode_lanes and
+   decode_lanes; it is printed with the card.  Then, in this process,
+   the sustained ms of an all-rows decode body (the carried 0 added to
+   all 61 rows, a u8 sum) and of the entry's first-w-rows body in turns,
+   and each device operation of the encode body's and both decode
+   bodies' timed steps, by name.
 
 The line before the last is a JSON object of the kernels (launches
 counted in phases 4, 4b, 7, 8, 9 and 10; ms is the kernel's device time at the
@@ -144,6 +156,7 @@ import io
 import json
 import os
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -151,6 +164,7 @@ import time
 N = 16 << 20  # the headline block
 K = 131072  # default_lanes(16 MiB)
 RATIO = 2.1626  # whole-blob ratio of the 16 MiB biased block
+RATIO_PAYLOAD = 2.1916  # its payload ratio: n / (the bit counts' sum / 8)
 NB = 100 << 10  # batched block size
 BK = 1024  # lanes of a batched block (S = 100)
 BATCH = 160  # the batched path's full width
@@ -196,6 +210,9 @@ RANK_SECONDS = 300  # the two ranks' limit, start-up included
 PIPE_TAIL = (12 << 20) + 12345
 PIPE_KINDS = "HHSHHHC"
 OUT_DIR = "chiprun_out"  # the tools' JSON
+# The benchmark entry (phase 11): its supervisor's budget and the child's
+# limit; a budget under BENCH_DEADLINE_S leaves no room for a retry.
+BENCH_SECONDS = 300
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory
 # bytes/s and tensor-core operations/s by input type.
@@ -367,8 +384,11 @@ def main() -> None:
     from huffman_tpu_torch.bench.harness import (
         bench_torch_codec,
         card_line,
+        decode_body,
         device_busy_ms,
         device_ops,
+        encode_body,
+        sustained_seconds,
     )
     from huffman_tpu_torch.constants import TPU_MAX_CODE_LEN
     from huffman_tpu_torch.ops import _cuda
@@ -380,7 +400,7 @@ def main() -> None:
     )
     from huffman_tpu_torch.tools.hist_experiments import format_row, race
     from huffman_tpu_torch.tools.run_benchmarks import suite_codecs
-    from huffman_tpu_torch.models.torch_codec import TorchCompressed
+    from huffman_tpu_torch.models.torch_codec import TorchCompressed, decode_statics
     from huffman_tpu_torch.ops.decode_bits import (
         decode_lanes,
         decode_lanes_batch,
@@ -460,6 +480,12 @@ def main() -> None:
     out = decode_lanes(words, eb, gr, sy, s)
     err["decode_lanes"] = expect_equal("decode", out, decode_lanes_plain(words, eb, gr, sy, s))
     expect_equal("decode vs input", out.reshape(-1), data)
+    # The benchmark's decode body reads the first w rows of the words.
+    w_scan = decode_statics({"max_bits": int(bits.max())}, s)
+    out_w = decode_lanes(words[:w_scan], eb, gr, sy, s)
+    err["decode_lanes"] = max(err["decode_lanes"], expect_equal(
+        f"decode first {w_scan} rows", out_w, decode_lanes_plain(words[:w_scan], eb, gr, sy, s)))
+    expect_equal(f"decode first {w_scan} rows vs all {w32}", out_w, out)
     # Every 15-bit window as the first of 4 symbols, random bits after it,
     # through five tables from 0- to 15-bit codes.
     xwords = torch.from_numpy(kernel_cases.window_words()).to(dev)
@@ -838,7 +864,8 @@ def main() -> None:
     e_ms, dd_ms = path_ms["device path"]
     print(f"bench_torch_codec 16 MiB: ratio {row['ratio']:.6f} (n / blob {1 / row['ratio']:.4f}), "
           f"round trip ok; sustained compress {row['compress_bps'] / (1 << 30):.4f} GiB/s, "
-          f"decompress {row['decompress_bps'] / (1 << 30):.4f} GiB/s (CUDA-graph replays); "
+          f"decompress {row['decompress_bps'] / (1 << 30):.4f} GiB/s (CUDA-graph replays; "
+          f"the decode body over the first {w_scan} of {w32} rows of words); "
           f"phase 5's device path by events: encode {gib / (e_ms / 1e3):.4f}, "
           f"decode {gib / (dd_ms / 1e3):.4f} GiB/s", flush=True)
     suite = run_suite(["biased", "uniform"], suite_codecs(dev), 4 << 20, reps=8)
@@ -1216,6 +1243,62 @@ def main() -> None:
     print(f"tool probe_encode_stages ({card}): {json.dumps(stages)}")
     print(f"tool probe_batched --bs 16,64,160 ({card}): {json.dumps(pbatched)}")
     print(f"phase 10: {time.perf_counter() - t10:.1f} s", flush=True)
+
+    # 11. The benchmark entry: bench_torch.py's supervisor in a child
+    # process, its one line checked; then its bodies' device operations,
+    # the all-rows decode body beside the first-w-rows one.
+    t11 = time.perf_counter()
+    bench_py = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench_torch.py")
+    r11 = subprocess.run(
+        [sys.executable, bench_py], capture_output=True, text=True, timeout=BENCH_SECONDS,
+        env=dict(os.environ, BENCH_SUPERVISOR_BUDGET_S=str(BENCH_SECONDS)),
+    )
+    lines11 = r11.stdout.splitlines()
+    if r11.returncode != 0 or not lines11:
+        raise AssertionError(f"bench_torch.py rc {r11.returncode}: {r11.stdout[-2000:]}"
+                             f"{r11.stderr[-2000:]}")
+    line11 = json.loads(lines11[-1])
+    d11 = line11.get("detail", {})
+    want11 = {"roundtrip_ok": True, "ratio": RATIO, "ratio_payload": RATIO_PAYLOAD, "k_lanes": K}
+    if line11.get("value") is None or {key: d11.get(key) for key in want11} != want11:
+        raise AssertionError(f"bench_torch.py line: {lines11[-1]}")
+    missing = [k for k in SINGLE_PATH if d11["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"bench_torch.py never launched {missing}")
+    print(f"bench_torch.py ({card}; {time.perf_counter() - t11:.1f} s with start-up): "
+          f"{lines11[-1]}", flush=True)
+    # The bodies in this process, on phase 4's block: an all-rows decode
+    # body (the carried 0 added to all W rows, a u8 sum, which PyTorch
+    # widens to int64) beside the entry's first-w-rows one, timed in
+    # turns; then the device operations of each body's step as
+    # sustained_seconds captures it.
+    ct = comp.tables
+
+    def all_rows_body(pert):
+        o = decode_lanes(comp.words + pert.to(torch.int32), ct["e_bound"], ct["g_rank"],
+                         ct["sorted_syms"], s)
+        return o.sum().to(torch.float32)
+
+    bodies = {
+        "encode": encode_body(codec, data),
+        f"decode, all {w32} rows": all_rows_body,
+        f"decode, first {w_scan} rows": decode_body(comp),
+    }
+    dec_keys = list(bodies)[1:]
+    turns11 = {key: [] for key in dec_keys}
+    for key in (dec_keys[0], dec_keys[1], dec_keys[1], dec_keys[0]):
+        turns11[key].append(sustained_seconds(bodies[key], reps=64, tries=4) * 1e3)
+    for key, times in turns11.items():
+        print(f"bench body {key} ({card}): sustained ms in turns (all, first w, first w, all): "
+              f"{json.dumps(times)}")
+    acc11 = torch.zeros((), dtype=torch.float32, device=dev)
+    for key, body in bodies.items():
+        ops11 = device_ops(lambda body=body: acc11.add_(body(torch.isnan(acc11).to(torch.uint8))))
+        for name, count, op_ms in ops11:
+            print(f"bench body {key} step device operation: {name} x{count:g} {op_ms:.6f} ms")
+        print(f"bench body {key} step ({card}): device busy "
+              f"{sum(op_ms for _, _, op_ms in ops11):.6f} ms")
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
     # Bounds at the shapes of `ms`: each input read once, each output
     # written once; the decode reads only the payload bits of its lanes.

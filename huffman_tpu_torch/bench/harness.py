@@ -157,34 +157,49 @@ def wall_seconds(fn, min_time: float = 0.3) -> float:
     return best
 
 
-def bench_torch_codec(codec, raw: bytes, reps: int = 32) -> dict:
-    """Sustained compress/decompress rates for a TorchCodec on its device:
-    the encode is ``encode_device`` (histogram, table, lane encode), the
-    decode the lane decode of the block's words, neither copying to the
-    host."""
-    from ..ops.decode_bits import decode_lanes
-
-    n = len(raw)
-    data = torch.from_numpy(np.frombuffer(raw, dtype=np.uint8).copy()).to(codec.device)
-    comp = codec.encode_device(data)
-    # decode_device fetches and caches the block's host metadata, so no
-    # timed body copies to the host.
-    ok = codec.decode_device(comp).cpu().numpy().tobytes() == raw
-    s = -(-n // comp.k)
-    words, t = comp.words, comp.tables
+def encode_body(codec, data):
+    """``bench.py``'s compress body on a (n,) uint8 block on the codec's
+    device: ``encode_device`` of the block plus the carried 0, its bit
+    counts and coding table summed.  Nothing is copied to the host."""
 
     def enc_once(pert):
         c = codec.encode_device(data + pert)
         return (c.bit_counts.sum() + c.tables["enc_table"].sum()).to(torch.float32)
 
-    def dec_once(pert):
-        o = decode_lanes(
-            words + pert.to(torch.int32), t["e_bound"], t["g_rank"], t["sorted_syms"], s
-        )
-        return o.sum().to(torch.float32)  # a u8 sum accumulates in int64, no copy
+    return enc_once
 
-    t_c = sustained_seconds(enc_once, reps=reps, device=codec.device)
-    t_d = sustained_seconds(dec_once, reps=reps, device=codec.device)
+
+def decode_body(comp):
+    """``bench.py``'s decompress body (``_decode_full``) on a compressed
+    block: the lane decode of the first w rows of its words
+    (`decode_statics`), the carried 0 added to those rows alone, and the
+    block's n bytes summed in int32.  The block's metadata is fetched
+    here (once, cached), so the body copies nothing to the host."""
+    from ..models.torch_codec import decode_statics
+    from ..ops.decode_bits import decode_lanes
+
+    n = comp.raw_size
+    s = -(-n // comp.k)
+    # The leading rows of the row-major (W, K) words: a contiguous view.
+    words = comp.words[: max(decode_statics(comp.meta(), s), 1)]
+    eb, gr, sy = comp.tables["e_bound"], comp.tables["g_rank"], comp.tables["sorted_syms"]
+
+    def dec_once(pert):
+        o = decode_lanes(words + pert.to(torch.int32), eb, gr, sy, s)
+        return o.reshape(-1)[:n].sum(dtype=torch.int32).to(torch.float32)
+
+    return dec_once
+
+
+def bench_torch_codec(codec, raw: bytes, reps: int = 32) -> dict:
+    """Sustained compress/decompress rates for a TorchCodec on its device,
+    of `encode_body` and `decode_body`, neither copying to the host."""
+    n = len(raw)
+    data = torch.from_numpy(np.frombuffer(raw, dtype=np.uint8).copy()).to(codec.device)
+    comp = codec.encode_device(data)
+    ok = codec.decode_device(comp).cpu().numpy().tobytes() == raw
+    t_c = sustained_seconds(encode_body(codec, data), reps=reps, device=codec.device)
+    t_d = sustained_seconds(decode_body(comp), reps=reps, device=codec.device)
     blob = codec.serialize(comp)
     return {
         "method": codec.name,

@@ -127,6 +127,17 @@ def default_lanes(n: int) -> int:
     return k
 
 
+def decode_statics(m: dict, s: int) -> int:
+    """The scan word count w of a block's decode, from its `meta` and
+    its ``s`` symbols a lane, as ``TpuCodec``'s ``decode_statics``
+    derives it: the words its longest lane fills, rounded up to an even
+    count and capped at the encode's W.  Of the statics that function
+    returns, only w changes what the card's decode reads (its first w
+    rows of words); the others shape the TPU kernel alone."""
+    w = (m["max_bits"] + 31) // 32
+    return min(-(-w // 2) * 2, (s * MAX_CODE_LEN + 31) // 32 + 1)
+
+
 @dataclasses.dataclass
 class TorchCompressed:
     """A compressed block in device memory."""

@@ -4,9 +4,10 @@ Counterpart: ``tools/bench_streaming.py``.
 
 1. Shared-table stream: `TorchCodec.build_tables` once from the first
    block, then ``encode_device(..., tables=)`` and the lane decode of a
-   ``--block-mib`` block (16 MiB): compress, decompress and combined
-   (encode then decode of its words) GiB/s, the payload ratio and the
-   round trip.
+   ``--block-mib`` block (16 MiB; `bench.harness.decode_body`, over the
+   words the block fills): compress, decompress and combined (encode
+   then decode of its words) GiB/s, the payload ratio and the round
+   trip.
 2. Batched 100 KiB blocks at K = 1024: `encode_batch` and `decode_batch`
    (statics computed once, outside the timed body) for B in 1, 4, 16,
    64, 160 (1, 16, 160 with ``--fast``; ``--bs`` picks others), with the
@@ -27,7 +28,7 @@ import os
 
 import torch
 
-from ..bench.harness import sustained_method, sustained_seconds
+from ..bench.harness import decode_body, sustained_method, sustained_seconds
 from ..bench.workloads import biased_u8
 from ..models.torch_codec import TorchCodec
 from ..ops.decode_bits import decode_lanes
@@ -47,20 +48,16 @@ def shared_table_row(n: int, reps: int, device) -> dict:
     ok = torch.equal(codec.decode_device(comp), d)
     s = -(-n // comp.k)
     eb, gr, sy = tables["e_bound"], tables["g_rank"], tables["sorted_syms"]
-    words = comp.words
 
     def enc_once(pert):
         return codec.encode_device(d + pert, tables=tables).bit_counts.sum().to(torch.float32)
-
-    def dec_once(pert):
-        return decode_lanes(words + pert.to(torch.int32), eb, gr, sy, s).sum().to(torch.float32)
 
     def combined_once(pert):
         c = codec.encode_device(d + pert, tables=tables)
         return decode_lanes(c.words, eb, gr, sy, s).sum().to(torch.float32)
 
     t_c = sustained_seconds(enc_once, reps=reps, device=device)
-    t_d = sustained_seconds(dec_once, reps=reps, device=device)
+    t_d = sustained_seconds(decode_body(comp), reps=reps, device=device)
     t_rt = sustained_seconds(combined_once, reps=reps, device=device)
     return {
         "block_bytes": n,

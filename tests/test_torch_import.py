@@ -34,7 +34,7 @@ def _run(code_or_args, cwd=REPO):
 
 def test_import_leaves_out_jax_and_huffman_tpu():
     r = _run(
-        "import sys, huffman_tpu_torch, chip_smoke\n"
+        "import sys, huffman_tpu_torch, chip_smoke, bench_torch\n"
         "import huffman_tpu_torch.convert, huffman_tpu_torch.container\n"
         "import huffman_tpu_torch.bench.harness, huffman_tpu_torch.bench.table\n"
         "import huffman_tpu_torch.ops.hist_variants\n"
