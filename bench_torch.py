@@ -23,7 +23,10 @@ Bodies, as ``bench.py``'s (``bench.harness.encode_body`` and
 table_build -> encode_lanes) of the block plus a carried 0; decompress is
 ``decode_lanes`` of the first w rows of the words, w from
 ``decode_statics`` as ``_decode_full`` takes them, with the carried 0
-added to those rows alone.  ``bench.harness.sustained_seconds`` times
+added to those rows alone.  The carried 0 and the int32 sums that end
+each body are one pass each, as XLA fuses them in ``bench.py``: the
+kernels ``carry`` and ``checksum`` (``bench.fused``,
+``csrc/bench_ops.cu``).  ``bench.harness.sustained_seconds`` times
 each: one step captured in a CUDA graph, R replays between CUDA events,
 cost (t(R) - t(1)) / (R - 1), reps 64, best of 4.
 

@@ -21,7 +21,14 @@ Phases (any failure exits non-zero; no phase failure is caught):
    reach every path of the kernel (the lane-skewed and escape-heavy
    16 MiB blocks, K = 8 with S = 4096, K = 24, and offset views at
    K = 1001 and at 16 MiB), and hist256's sampled and full counts of those and of a
-   constant and a uniform 16 MiB block.
+   constant and a uniform 16 MiB block.  The measurement harness's
+   kernels (``bench.fused``: carry, the carried 0, with pert 0 and 1;
+   checksum, the int32 sum) must equal their plain versions exactly on
+   the bodies' inputs (the 16 MiB block, the first w and all W rows of
+   words, the bit counts, the coding table) and on 16 MiB of 0xFF (the
+   sum wraps to -2^24, 0xFF + 1 to 0), a 16 MiB view 3 bytes past 16-byte
+   alignment, 16 MiB + 13 bytes, u8 views at every offset 1-15 and int32
+   views 1-3 words past alignment, and lengths 0 to 31.
 4. End to end: ``TorchCodec(device="cuda")`` on the 16 MiB biased block:
    encode -> serialize -> deserialize -> decode gives the input back, the
    blob equals the CPU path's blob, the ratio is 2.1626, compress /
@@ -56,6 +63,9 @@ Phases (any failure exits non-zero; no phase failure is caught):
    decode with statics precomputed).  Also hist256's full count of the
    16 MiB block, and hist256_onehot in each MMA type on it, each beside
    its plain version and ``torch.bincount`` (the library yardstick).
+   carry and checksum at 16 MiB (and at the decode body's words, bit
+   counts and table) beside their plain versions and the PyTorch ops
+   they replace (``x + pert``; ``x.sum(dtype=torch.int32)`` with its cast).
 6. hist256_onehot (the histogram race's kernel) in each MMA type (s8,
    bf16, tf32) must equal its plain version and hist256's full count on
    five 16 MiB blocks (biased, uniform, constant, whose one bin is 2^24,
@@ -69,8 +79,9 @@ Phases (any failure exits non-zero; no phase failure is caught):
    uniform workloads at 4 MiB over the suite's rows
    (``tools.run_benchmarks.suite_codecs``, every row must round-trip),
    and ``race(16 MiB)`` (every row OK); the counters of hist256_onehot,
-   hist256, table_build, encode_lanes and decode_lanes must be nonzero
-   after.  It runs after phase 5's profiler windows, which leave every
+   hist256, table_build, encode_lanes, decode_lanes, carry and checksum
+   must be nonzero after, and carry and checksum must have launched in
+   each of the three.  It runs after phase 5's profiler windows, which leave every
    later launch costing the host more; its timings replay CUDA graphs,
    one launch per rep.
 8. The ref profile (``TorchRefCodec``, the reference's K-stream format).
@@ -108,7 +119,8 @@ Phases (any failure exits non-zero; no phase failure is caught):
    meshes (1, 2) and (2, 1) on 16 MiB: each rank's blob, decompressed
    bytes and ``roundtrip`` arrays must equal the world-size-1 results.
    Times beside the card: ``tools.bench_sharded``'s one-rank row (4 MiB,
-   K = 8192), the bytes API's GiB/s at 64 MiB (median of 3, host clock),
+   K = 8192; carry and checksum must launch in its body), the bytes
+   API's GiB/s at 64 MiB (median of 3, host clock),
    one ``sharded_roundtrip`` of the 64 blocks by CUDA events, its
    device-busy share and each device operation.
 
@@ -126,26 +138,33 @@ Phases (any failure exits non-zero; no phase failure is caught):
    through their ``main()``, JSON to
    ``chiprun_out/``: ``bench_streaming --fast``, ``bench_small --reps 16``,
    ``probe_k``, ``probe_encode_stages`` and ``probe_batched --bs
-   16,64,160``; every row that has ``roundtrip_ok`` must hold it.
+   16,64,160``; every row that has ``roundtrip_ok`` must hold it, and
+   carry and checksum must launch in each tool's bodies.
 11. The benchmark entry: ``python3 bench_torch.py`` (the supervisor) in a
    child process under a 300 s limit.  Its last stdout line must have a
    value, ``roundtrip_ok``, ratio 2.1626, ratio_payload 2.1916, k_lanes
    131072 and launches of hist256, table_build, encode_lanes and
-   decode_lanes; it is printed with the card.  Then, in this process,
-   the sustained ms of an all-rows decode body (the carried 0 added to
-   all 61 rows, a u8 sum) and of the entry's first-w-rows body in turns,
-   and each device operation of the encode body's and both decode
-   bodies' timed steps, by name.
+   decode_lanes, carry and checksum; it is printed with the card.  Then,
+   in this process, each body's launches of carry and checksum (one
+   call), the sustained ms of the entry's encode and decode bodies each
+   in turns with the same body in PyTorch's own ops (``+ pert``,
+   ``.sum()``; marked as comparison rows), and of an all-rows decode body
+   (the carried 0 added to all 61 rows, a u8 sum; a comparison row), and
+   each device operation of every body's timed step, by name.  The
+   entry's decode step must hold no device operation but decode_lanes,
+   carry and checksum that takes 0.01 ms or more: a u8 -> int32 copy of
+   the decoded 16 MiB moves 80 MB, 0.025 ms at the card's peak.
 
 The line before the last is a JSON object of the kernels (launches
 counted in phases 4, 4b, 7, 8, 9 and 10; ms is the kernel's device time at the
 single-block shapes, hist256_batch's at B = 160, hist256_onehot's in
-bf16 (the TPU's base variant) at 16 MiB; plain_ms the plain version's
-call; bound_ms the least time of the same work on an H100 at its
-published peaks, from the bytes moved or the tensor operations, and for
-table_build, which moves 2 KiB, from its serial chain of dependent steps;
-library_ms ``torch.bincount``'s call where it computes the same
-function); the last is ``{"ok": true, "device": {...}}``.  Imports
+bf16 (the TPU's base variant) at 16 MiB, carry's and checksum's on the
+16 MiB u8 block; plain_ms the plain version's call; bound_ms the least
+time of the same work on an H100 at its published peaks, from the bytes
+moved or the tensor operations, and for table_build, which moves 2 KiB,
+from its serial chain of dependent steps; library_ms ``torch.bincount``'s
+call where it computes the same function, and for carry ``x + pert``,
+for checksum ``x.sum(dtype=torch.int32)``); the last is ``{"ok": true, "device": {...}}``.  Imports
 neither jax nor huffman_tpu.
 """
 
@@ -154,6 +173,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -192,11 +212,16 @@ KERNELS = {
         "huffman_tpu_torch/csrc/hist256_onehot.cu",
         "tools/hist_experiments.py:36",
     ),
+    # The measurement harness's two passes: XLA fusions in the JAX bodies,
+    # no Pallas kernel (bench.py:174 ``d + pert``, :190 the int32 sum).
+    "carry": ("huffman_tpu_torch/csrc/bench_ops.cu", "bench.py:174"),
+    "checksum": ("huffman_tpu_torch/csrc/bench_ops.cu", "bench.py:190"),
 }
 # The kernels each path must launch.
 SINGLE_PATH = ("hist256", "table_build", "encode_lanes", "decode_lanes")
 BATCHED_PATH = ("hist256_batch", "table_build", "encode_lanes", "decode_lanes")
-MEASURE_PATH = ("hist256_onehot",) + SINGLE_PATH
+FUSED = ("carry", "checksum")
+MEASURE_PATH = ("hist256_onehot",) + SINGLE_PATH + FUSED
 REF_PATH = ("hist256", "encode_lanes", "decode_lanes")
 REF_KS = (65536, 4096)  # the ref profile's lanes at 16 MiB: S = 256 and 4096
 # The sharded path (phase 9): ShardedCodec's defaults, at world size 1 on
@@ -313,6 +338,19 @@ def expect_equal(name: str, a, b) -> int:
     return err
 
 
+def fused_launches(seen: dict, label: str, fn):
+    """``fn()``'s result; ``seen[label]`` takes the launches of carry and
+    checksum during it, which must both be nonzero."""
+    from huffman_tpu_torch.ops import _cuda
+
+    before = dict(_cuda.LAUNCHES)
+    result = fn()
+    seen[label] = {k: _cuda.LAUNCHES[k] - before[k] for k in FUSED}
+    if not all(seen[label].values()):
+        raise AssertionError(f"{label}: carry and checksum launched {seen[label]}")
+    return result
+
+
 def sharded_rank(
     rank: int, world: int, store: str, raw_path: str, out_dir: str, device: str
 ) -> None:
@@ -380,7 +418,7 @@ def main() -> None:
     from huffman_tpu_torch.constants import MAX_CODE_LEN
     from huffman_tpu_torch.models.torch_ref_codec import lane_layout, slice_order
     from huffman_tpu_torch.ops.tables import pack_encode_table
-    from huffman_tpu_torch.bench import kernel_cases, render_markdown, run_suite, workloads
+    from huffman_tpu_torch.bench import fused, kernel_cases, render_markdown, run_suite, workloads
     from huffman_tpu_torch.bench.harness import (
         bench_torch_codec,
         card_line,
@@ -542,6 +580,44 @@ def main() -> None:
           f"encode_lanes equals its plain version on {', '.join(hard)}; hist256's "
           f"sampled and full counts equal the plain version's on those and on "
           f"{', '.join(kernel_cases.hist_blocks(0))} 16 MiB blocks", flush=True)
+
+    # The measurement harness's carry and checksum on the bodies' inputs
+    # and on their hard ones: a sum that wraps, every misalignment, ragged
+    # tails and short lengths.
+    p0 = torch.zeros((), dtype=torch.uint8, device=dev)
+    p1 = torch.ones((), dtype=torch.uint8, device=dev)
+    spare = torch.from_numpy(workloads.biased_u8(N + 32, 3)).to(dev)
+    ones = torch.full((N,), 0xFF, dtype=torch.uint8, device=dev)
+    fused_in = {
+        "16 MiB biased u8": data,
+        "16 MiB of 0xFF": ones,
+        "16 MiB 3 bytes past alignment": spare[3 : 3 + N],
+        "16 MiB + 13 bytes": spare[: N + 13],
+        f"({w_scan}, {K}) int32 words": words[:w_scan],
+        f"({w32}, {K}) int32 words": words,
+        f"({K},) int32 bit counts": bits,
+        "(256,) int32 coding table": enc,
+    }
+    for off in range(1, 16):
+        fused_in[f"1 MiB + 7 bytes, {off} past alignment"] = spare[off : off + (1 << 20) + 7]
+    for off in range(1, 4):
+        fused_in[f"{K} + 5 int32 words, {off} past alignment"] = words.view(-1)[off : off + K + 5]
+    for n_short in (0, 1, 15, 16, 17, 31):
+        fused_in[f"{n_short} bytes"] = spare[5 : 5 + n_short]
+    err["carry"] = err["checksum"] = 0
+    for name, x in fused_in.items():
+        for pert in (p0, p1):
+            err["carry"] = max(err["carry"], expect_equal(
+                f"carry {name} + {int(pert)}", fused.carry(x, pert), fused.carry_plain(x, pert)))
+        err["checksum"] = max(err["checksum"], expect_equal(
+            f"checksum {name}", fused.checksum(x), fused.checksum_plain(x)))
+    if int(fused.checksum(ones)) != -(1 << 24) or int(fused.carry(ones, p1).max()) != 0:
+        raise AssertionError("16 MiB of 0xFF: the checksum does not wrap to -2^24, or the "
+                             "carry does not wrap 0xFF + 1 to 0")
+    torch.cuda.synchronize()
+    print(f"carry (pert 0 and 1) and checksum equal their plain versions on "
+          f"{len(fused_in)} inputs: {', '.join(fused_in)}", flush=True)
+    del ones, spare
 
     # 4. End to end on the card; the launch counters cover this phase only.
     codec = TorchCodec(device=dev)
@@ -719,6 +795,16 @@ def main() -> None:
         "hist256": cuda_ms(lambda: torch.bincount(sample, minlength=256), 20),
         "hist256_onehot": cuda_ms(lambda: torch.bincount(data, minlength=256), 20),
     }
+    # carry and checksum on the 16 MiB block beside their plain versions
+    # and the one PyTorch call each replaces in the bodies (for carry the
+    # same call as its plain version).
+    fcalls = {"carry": (lambda: fused.carry(data, p0), lambda: fused.carry_plain(data, p0),
+                        lambda: data + p0),
+              "checksum": (lambda: fused.checksum(data), lambda: fused.checksum_plain(data),
+                           lambda: data.sum(dtype=torch.int32))}
+    for name, (kern, plain, lib) in fcalls.items():
+        call_ms[name], plain_ms[name] = cuda_ms(kern, 50), cuda_ms(plain, 20)
+        library_ms[name] = cuda_ms(lib, 20)
 
     comp_t = codec.deserialize(blob)
     codec.decode_device(comp_t)  # fetches and caches the block's metadata
@@ -783,6 +869,48 @@ def main() -> None:
               f"torch.bincount call {library_ms['hist256_onehot']:.6f} ms")
     ms["hist256_onehot"] = full_ms["bf16"]
     plain_ms["hist256_onehot"] = fplain_ms["bf16"]
+    # carry and checksum at the bodies' shapes, each beside its bound, its
+    # call's device operations (checksum's memset too) and the device time
+    # of the PyTorch ops it replaces there.
+    fshapes = (
+        ("carry", "16 MiB u8 (the encode body's)", data, lambda x: x + p0),
+        ("carry", f"({w_scan}, {K}) int32 words (the decode body's)", words[:w_scan],
+         lambda x: x + p0.to(torch.int32)),
+        ("checksum", "16 MiB u8 (the decode body's)", data, lambda x: x.sum(dtype=torch.int32)),
+        ("checksum", f"({K},) int32 bit counts (the encode body's)", bits, lambda x: x.sum()),
+        ("checksum", "(256,) int32 coding table (the encode body's)", enc, lambda x: x.sum()),
+    )
+    # Back to back, a 16 MiB block and its 16 MiB result stay in the 50 MB
+    # L2 and the kernels beat the device-memory bound; so at 16 MiB each
+    # launch also runs after a read of 128 MiB that leaves the L2 holding
+    # clean lines of other data (`ms` of the kernels line: the bound counts
+    # device memory).  A write would leave dirty lines, whose write-back
+    # the kernel would pay.
+    scrub = torch.zeros(128 << 20, dtype=torch.uint8, device=dev)
+    for name, label, x, replaced in fshapes:
+        if name == "carry":
+            fn, fb = (lambda x=x: fused.carry(x, p0)), bound(2 * x.numel() * x.element_size() + 1)
+        else:
+            fn, fb = (lambda x=x: fused.checksum(x)), bound(x.numel() * x.element_size() + 4)
+        k_ms = kernel_ms(fn, name, match=f"{name}_kernel<")
+        if x is data:
+            ms[name] = kernel_ms(lambda fn=fn: (scrub.max(), fn()), name,
+                                 match=f"{name}_kernel<")
+        print(f"time {name} {label}: kernel {k_ms:.6f} ms device back to back"
+              + (f", {ms[name]:.6f} ms after the L2 is evicted" if x is data else "")
+              + f" (bound {fb[0]:.6f}, {fb[1]}), its call's device operations "
+              f"{device_busy_ms(fn):.6f} ms; the PyTorch ops it replaces "
+              f"{device_busy_ms(lambda x=x: replaced(x)):.6f} ms device"
+              + (f"; call {call_ms[name]:.6f} ms, plain {plain_ms[name]:.6f} ms, library "
+                 f"call {library_ms[name]:.6f} ms (events)" if x is data else ""))
+        if x is data:
+            for op, count, op_ms in device_ops(lambda x=x: replaced(x)):
+                print(f"  replaced by {name} at 16 MiB, device operation: {op} x{count:g} "
+                      f"{op_ms:.6f} ms")
+            cold = device_ops(lambda x=x: (scrub.max(), replaced(x)))
+            print("  the same after a 128 MiB read that evicts the L2 (the read listed too): "
+                  + ", ".join(f"{op[:70]} {op_ms:.6f} ms" for op, _, op_ms in cold))
+    del scrub
     for key, (nbytes, enc_fn, dec_fn) in paths.items():
         gib = nbytes / (1 << 30)
         e_ms, dd_ms = path_ms[key]
@@ -855,7 +983,9 @@ def main() -> None:
     # phase only.
     _cuda.reset_launches()
     t7 = time.perf_counter()
-    row = bench_torch_codec(TorchCodec(device=dev), data_np.tobytes())
+    seen7 = {}
+    row = fused_launches(seen7, "bench_torch_codec",
+                         lambda: bench_torch_codec(TorchCodec(device=dev), data_np.tobytes()))
     if not row["roundtrip_ok"]:
         raise AssertionError("bench_torch_codec: the 16 MiB block does not round-trip")
     if row["ratio"] != len(blob) / N:
@@ -868,13 +998,15 @@ def main() -> None:
           f"the decode body over the first {w_scan} of {w32} rows of words); "
           f"phase 5's device path by events: encode {gib / (e_ms / 1e3):.4f}, "
           f"decode {gib / (dd_ms / 1e3):.4f} GiB/s", flush=True)
-    suite = run_suite(["biased", "uniform"], suite_codecs(dev), 4 << 20, reps=8)
+    suite = fused_launches(seen7, "run_suite",
+                           lambda: run_suite(["biased", "uniform"], suite_codecs(dev), 4 << 20,
+                                             reps=8))
     print(render_markdown(suite), flush=True)
     bad = [(w, r["method"], r["streams"]) for w, blk in suite.items() for r in blk["rows"]
            if not r["roundtrip_ok"]]
     if bad:
         raise AssertionError(f"suite rows that do not round-trip: {bad}")
-    rows = race(N)
+    rows = fused_launches(seen7, "race", lambda: race(N))
     for r in rows:
         print(f"race: {format_row(r)}")
     bad = [r["name"] for r in rows if not r["ok"]]
@@ -886,7 +1018,8 @@ def main() -> None:
     if missing:
         raise AssertionError(f"measurement path never launched {missing}")
     print(f"launches in the measurement phase: {json.dumps(launches_m)} "
-          f"({time.perf_counter() - t7:.1f} s)", flush=True)
+          f"({time.perf_counter() - t7:.1f} s); of carry and checksum by call: "
+          f"{json.dumps(seen7)}", flush=True)
 
     # 8. The ref profile.  Kernels against their plain versions first, at
     # the path's shapes and with ragged row counts.
@@ -1112,8 +1245,10 @@ def main() -> None:
           f"({time.perf_counter() - t_ranks:.1f} s with start-up)", flush=True)
 
     # Times beside the card.  Events and the host clock before the profiler.
-    row = bench_sharded.one_rank_row(4, 8192, dev)
-    print(f"bench_sharded one-rank row (4 x 1 MiB, K=8192; {card}): {json.dumps(row)}")
+    seen9 = {}
+    row = fused_launches(seen9, "one_rank_row", lambda: bench_sharded.one_rank_row(4, 8192, dev))
+    print(f"bench_sharded one-rank row (4 x 1 MiB, K=8192; {card}): {json.dumps(row)}; "
+          f"launches of carry and checksum {json.dumps(seen9['one_rank_row'])}")
     gib64 = SN / (1 << 30)
     sc_ms = host_ms(lambda: sc.compress(raw64), reps=3)
     sd_ms = host_ms(lambda: sc.decompress(blob64), reps=3)
@@ -1225,13 +1360,18 @@ def main() -> None:
 
     # The measurement tools, each through its main(), JSON to OUT_DIR.
     tool_out = lambda name: ["--out", os.path.join(OUT_DIR, f"{name}.json")]  # noqa: E731
-    quiet = io.StringIO()
+    quiet, seen10 = io.StringIO(), {}
     with contextlib.redirect_stdout(quiet):
-        streaming = bench_streaming.main(["--fast", *tool_out("streaming")])
-        small = bench_small.main(["--reps", "16", *tool_out("results_small")])
-        ks = probe_k.main(tool_out("probe_k"))
-        stages = probe_encode_stages.main(tool_out("probe_encode_stages"))
-        pbatched = probe_batched.main(["--bs", "16,64,160", *tool_out("probe_batched")])
+        streaming = fused_launches(seen10, "bench_streaming", lambda: bench_streaming.main(
+            ["--fast", *tool_out("streaming")]))
+        small = fused_launches(seen10, "bench_small", lambda: bench_small.main(
+            ["--reps", "16", *tool_out("results_small")]))
+        ks = fused_launches(seen10, "probe_k", lambda: probe_k.main(tool_out("probe_k")))
+        stages = fused_launches(seen10, "probe_encode_stages", lambda: probe_encode_stages.main(
+            tool_out("probe_encode_stages")))
+        pbatched = fused_launches(seen10, "probe_batched", lambda: probe_batched.main(
+            ["--bs", "16,64,160", *tool_out("probe_batched")]))
+    print(f"launches of carry and checksum by tool: {json.dumps(seen10)}")
     tool_rows = ([streaming["streaming_shared_table"]] + streaming["batched_100KiB_curve"]
                  + [r for rows in small.values() for r in rows] + ks)
     bad = [r for r in tool_rows if not r["roundtrip_ok"]]
@@ -1262,42 +1402,77 @@ def main() -> None:
     want11 = {"roundtrip_ok": True, "ratio": RATIO, "ratio_payload": RATIO_PAYLOAD, "k_lanes": K}
     if line11.get("value") is None or {key: d11.get(key) for key in want11} != want11:
         raise AssertionError(f"bench_torch.py line: {lines11[-1]}")
-    missing = [k for k in SINGLE_PATH if d11["launches"][k] == 0]
+    missing = [k for k in SINGLE_PATH + FUSED if d11["launches"][k] == 0]
     if missing:
         raise AssertionError(f"bench_torch.py never launched {missing}")
     print(f"bench_torch.py ({card}; {time.perf_counter() - t11:.1f} s with start-up): "
           f"{lines11[-1]}", flush=True)
-    # The bodies in this process, on phase 4's block: an all-rows decode
+    # The bodies in this process, on phase 4's block: the entry's encode
+    # and first-w-rows decode bodies, each in turns with the same body in
+    # PyTorch's own ops (a u8 `+ pert`, an int64 `.sum()` of the bit
+    # counts and table, an int32 `+ pert` on the words, `sum(dtype=int32)`
+    # of the bytes, which PyTorch widens first) and an all-rows decode
     # body (the carried 0 added to all W rows, a u8 sum, which PyTorch
-    # widens to int64) beside the entry's first-w-rows one, timed in
-    # turns; then the device operations of each body's step as
-    # sustained_seconds captures it.
+    # widens to int64): the last three are comparison rows.  Then the
+    # device operations of each body's step as sustained_seconds captures
+    # it.
     ct = comp.tables
+    w11 = max(decode_statics(comp.meta(), s), 1)
+    tabs11 = (ct["e_bound"], ct["g_rank"], ct["sorted_syms"])
+
+    def torch_ops_encode_body(pert):
+        c = codec.encode_device(data + pert)
+        return (c.bit_counts.sum() + c.tables["enc_table"].sum()).to(torch.float32)
+
+    def torch_ops_decode_body(pert):
+        o = decode_lanes(comp.words[:w11] + pert.to(torch.int32), *tabs11, s)
+        return o.reshape(-1)[:N].sum(dtype=torch.int32).to(torch.float32)
 
     def all_rows_body(pert):
-        o = decode_lanes(comp.words + pert.to(torch.int32), ct["e_bound"], ct["g_rank"],
-                         ct["sorted_syms"], s)
+        o = decode_lanes(comp.words + pert.to(torch.int32), *tabs11, s)
         return o.sum().to(torch.float32)
 
+    enc_key, dec_key = "encode", f"decode, first {w11} rows"
     bodies = {
-        "encode": encode_body(codec, data),
-        f"decode, all {w32} rows": all_rows_body,
-        f"decode, first {w_scan} rows": decode_body(comp),
+        enc_key: encode_body(codec, data),
+        dec_key: decode_body(comp),
+        "encode, PyTorch ops (comparison)": torch_ops_encode_body,
+        f"decode, first {w11} rows, PyTorch ops (comparison)": torch_ops_decode_body,
+        f"decode, all {w32} rows, PyTorch ops (comparison)": all_rows_body,
     }
-    dec_keys = list(bodies)[1:]
-    turns11 = {key: [] for key in dec_keys}
-    for key in (dec_keys[0], dec_keys[1], dec_keys[1], dec_keys[0]):
-        turns11[key].append(sustained_seconds(bodies[key], reps=64, tries=4) * 1e3)
+    keys = list(bodies)
+    seen11 = {}
+    for key in (enc_key, dec_key):
+        fused_launches(seen11, key, lambda key=key: bodies[key](p0))
+    print(f"launches of carry and checksum by body, one call: {json.dumps(seen11)}")
+    turns11 = {key: [] for key in keys}
+    for new, old in ((keys[0], keys[2]), (keys[1], keys[3]), (keys[4], keys[4])):
+        for key in (old, new, new, old) if new != old else (new, new):
+            turns11[key].append(sustained_seconds(bodies[key], reps=64, tries=4) * 1e3)
     for key, times in turns11.items():
-        print(f"bench body {key} ({card}): sustained ms in turns (all, first w, first w, all): "
-              f"{json.dumps(times)}")
+        print(f"bench body {key} ({card}): sustained ms, two readings taken in turns "
+              f"(PyTorch ops, kernels, kernels, PyTorch ops): {json.dumps(times)}")
+    # The trace may lose launches (as `kernel_ms` says): each operation's
+    # mean over the launches it recorded, times its launches a step (the
+    # recorded count a step, rounded up), and the share recorded.
     acc11 = torch.zeros((), dtype=torch.float32, device=dev)
     for key, body in bodies.items():
-        ops11 = device_ops(lambda body=body: acc11.add_(body(torch.isnan(acc11).to(torch.uint8))))
-        for name, count, op_ms in ops11:
-            print(f"bench body {key} step device operation: {name} x{count:g} {op_ms:.6f} ms")
+        step11 = lambda body=body: acc11.add_(body(torch.isnan(acc11).to(torch.uint8)))  # noqa: E731
+        ops11 = [(name, math.ceil(count - 0.01), op_ms / count, count)
+                 for name, count, op_ms in device_ops(step11)]
+        for name, per_step, launch_ms, count in ops11:
+            print(f"bench body {key} step device operation: {name} {launch_ms:.6f} ms a launch, "
+                  f"{per_step} a step (recorded {count:g} a step)")
         print(f"bench body {key} step ({card}): device busy "
-              f"{sum(op_ms for _, _, op_ms in ops11):.6f} ms")
+              f"{sum(n * launch_ms for _, n, launch_ms, _ in ops11):.6f} ms")
+        if key == dec_key:
+            # Any pass over the decoded 16 MiB other than the checksum's:
+            # a u8 -> int32 copy moves 80 MB, 0.025 ms at the card's peak.
+            big = [(name, launch_ms) for name, _, launch_ms, _ in ops11 if launch_ms >= 0.01
+                   and not any(k in name for k in
+                               ("decode_lanes_kernel", "carry_kernel", "checksum_kernel"))]
+            if big:
+                raise AssertionError(f"the decode body's step holds other passes: {big}")
     print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
     # Bounds at the shapes of `ms`: each input read once, each output
@@ -1314,6 +1489,8 @@ def main() -> None:
         "encode_lanes": bound(N + 256 * 4 + w32 * K * 4 + K * 4),
         "decode_lanes": bound(int(bits.sum()) / 8 + (2 * TPU_MAX_CODE_LEN + 3 + 256) * 4 + N),
         "hist256_onehot": bound(N + 256 * 4, 512 * N, MMA_OPS["bf16"]),
+        "carry": bound(2 * N + 1),
+        "checksum": bound(N + 4),
     }
     print(f"card: {card}")
     print(json.dumps({"kernels": [

@@ -19,6 +19,8 @@ import time
 import numpy as np
 import torch
 
+from . import fused
+
 
 def sustained_seconds(
     body, reps: int = 32, tries: int = 2, max_reps: int = 512, *, device="cuda"
@@ -159,12 +161,15 @@ def wall_seconds(fn, min_time: float = 0.3) -> float:
 
 def encode_body(codec, data):
     """``bench.py``'s compress body on a (n,) uint8 block on the codec's
-    device: ``encode_device`` of the block plus the carried 0, its bit
-    counts and coding table summed.  Nothing is copied to the host."""
+    device: ``encode_device`` of the block plus the carried 0
+    (`fused.carry`), the `fused.checksum` of its bit counts and of its
+    coding table added in int32, as float32.  Nothing is copied to the
+    host."""
 
     def enc_once(pert):
-        c = codec.encode_device(data + pert)
-        return (c.bit_counts.sum() + c.tables["enc_table"].sum()).to(torch.float32)
+        c = codec.encode_device(fused.carry(data, pert))
+        total = fused.checksum(c.bit_counts) + fused.checksum(c.tables["enc_table"])
+        return total.to(torch.float32)
 
     return enc_once
 
@@ -172,9 +177,10 @@ def encode_body(codec, data):
 def decode_body(comp):
     """``bench.py``'s decompress body (``_decode_full``) on a compressed
     block: the lane decode of the first w rows of its words
-    (`decode_statics`), the carried 0 added to those rows alone, and the
-    block's n bytes summed in int32.  The block's metadata is fetched
-    here (once, cached), so the body copies nothing to the host."""
+    (`decode_statics`), the carried 0 added to those rows alone
+    (`fused.carry`), and the `fused.checksum` of the block's n bytes, as
+    float32.  The block's metadata is fetched here (once, cached), so the
+    body copies nothing to the host."""
     from ..models.torch_codec import decode_statics
     from ..ops.decode_bits import decode_lanes
 
@@ -185,8 +191,8 @@ def decode_body(comp):
     eb, gr, sy = comp.tables["e_bound"], comp.tables["g_rank"], comp.tables["sorted_syms"]
 
     def dec_once(pert):
-        o = decode_lanes(words + pert.to(torch.int32), eb, gr, sy, s)
-        return o.reshape(-1)[:n].sum(dtype=torch.int32).to(torch.float32)
+        o = decode_lanes(fused.carry(words, pert), eb, gr, sy, s)
+        return fused.checksum(o.reshape(-1)[:n]).to(torch.float32)
 
     return dec_once
 

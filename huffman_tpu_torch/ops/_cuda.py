@@ -5,7 +5,9 @@ library with a plain C interface under ``build/torch_kernels/`` at first
 use, all of them at once (one nvcc process per source), and is called
 through ctypes: every pointer and the stream are ``c_void_p``, the
 stream is PyTorch's current one, and each C entry returns
-``cudaGetLastError()`` after its launch.
+``cudaGetLastError()`` after its launch.  The codec's kernels have a
+source each, named for it; the measurement harness's two (``carry`` and
+``checksum``) share ``csrc/bench_ops.cu``.
 
 ``LAUNCHES`` counts the launches of each kernel, so a caller can show
 that a path really went through the kernels.  It and the library handles
@@ -25,8 +27,12 @@ from .._build import BUILD_DIR, build_library
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 KERNELS = (
     "hist256", "hist256_batch", "table_build", "encode_lanes", "decode_lanes",
-    "hist256_onehot",
+    "hist256_onehot", "carry", "checksum",
 )
+#: The source of each kernel that is not named for its own.
+_SOURCE_OF = {"carry": "bench_ops", "checksum": "bench_ops"}
+#: The sources, ``csrc/<source>.cu``, one library each.
+SOURCES = tuple(dict.fromkeys(_SOURCE_OF.get(name, name) for name in KERNELS))
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,6 +53,8 @@ _ARGTYPES = {
     "encode_lanes": [_VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP],
     "decode_lanes": [_VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP, _VP],
     "hist256_onehot": [_VP, _I64, _I32, _VP, _VP],
+    "carry": [_VP, _I64, _I32, _VP, _VP, _VP],
+    "checksum": [_VP, _I64, _I32, _VP, _VP],
 }
 #: Further C entries ``<entry>_launch`` of a kernel's library: entry ->
 #: (kernel, ctypes argument types).  A launch through one counts as a
@@ -86,13 +94,13 @@ def load() -> dict:
                 name, nvcc, _FLAGS, [os.path.join(_CSRC, f"{name}.cu")], out_dir
             )
 
-        with ThreadPoolExecutor(len(KERNELS)) as pool:
-            built = list(pool.map(build, KERNELS))
-        dlls = {name: ctypes.CDLL(path) for name, (path, _) in zip(KERNELS, built)}
+        with ThreadPoolExecutor(len(SOURCES)) as pool:
+            built = list(pool.map(build, SOURCES))
+        dlls = {src: ctypes.CDLL(path) for src, (path, _) in zip(SOURCES, built)}
         entries = {name: (name, _ARGTYPES[name]) for name in KERNELS} | _MORE_ENTRIES
         libs = {}
         for entry, (name, argtypes) in entries.items():
-            fn = getattr(dlls[name], f"{entry}_launch")
+            fn = getattr(dlls[_SOURCE_OF.get(name, name)], f"{entry}_launch")
             fn.argtypes = argtypes
             fn.restype = _I32
             libs[entry] = fn

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..bench import fused
 from ..bench.harness import sustained_seconds
 from ..bench.workloads import biased_u8
 from ..constants import TPU_MAX_CODE_LEN
@@ -52,13 +53,15 @@ def _step(mesh, k: int, block: int):
 def one_rank_row(per_dev_blocks: int, k: int, device, block: int = BLOCK, reps: int = 8) -> dict:
     """The one-rank row: ``per_dev_blocks`` blocks through the step with
     no collective, timed by `sustained_seconds` (CUDA-graph replays on a
-    card, the host clock on the CPU)."""
+    card, the host clock on the CPU); the body carries its 0 with
+    `bench.fused.carry` and sums the bit counts with
+    `bench.fused.checksum` (int32), as the JAX tool's does."""
     run = _step(LocalMesh(), k, block)
     blocks = torch.from_numpy(biased_u8(per_dev_blocks * block, 0).reshape(-1, block)).to(device)
     ok = torch.equal(run(blocks)[0], blocks)
 
     def body(pert):
-        return run(blocks + pert)[1].sum().to(torch.float32)
+        return fused.checksum(run(fused.carry(blocks, pert))[1]).to(torch.float32)
 
     t = sustained_seconds(body, reps=reps, device=device)
     return {"devices": 1, "roundtrip_GiB_s": per_dev_blocks * block / t / (1 << 30), "ok": ok}

@@ -6,8 +6,9 @@ Counterpart: ``tools/bench_streaming.py``.
    block, then ``encode_device(..., tables=)`` and the lane decode of a
    ``--block-mib`` block (16 MiB; `bench.harness.decode_body`, over the
    words the block fills): compress, decompress and combined (encode
-   then decode of its words) GiB/s, the payload ratio and the round
-   trip.
+   then the decode of the first w rows of its words, as the JAX tool's
+   ``combined_once`` slices them) GiB/s, the payload ratio and the
+   round trip.
 2. Batched 100 KiB blocks at K = 1024: `encode_batch` and `decode_batch`
    (statics computed once, outside the timed body) for B in 1, 4, 16,
    64, 160 (1, 16, 160 with ``--fast``; ``--bs`` picks others), with the
@@ -15,7 +16,9 @@ Counterpart: ``tools/bench_streaming.py``.
 
 Every body is timed by `bench.harness.sustained_seconds`: none reads back
 to the host, so on a card each is one step captured in a CUDA graph and
-replayed; each row names its timing.
+replayed; each row names its timing.  As in the JAX tool's bodies, each
+adds the carried 0 with `bench.fused.carry` and sums its results with
+`bench.fused.checksum` (int32, added in int32).
 
     python3 -m huffman_tpu_torch.tools.bench_streaming [--fast] [--out bench_out/streaming.json]
 """
@@ -28,9 +31,10 @@ import os
 
 import torch
 
+from ..bench import fused
 from ..bench.harness import decode_body, sustained_method, sustained_seconds
 from ..bench.workloads import biased_u8
-from ..models.torch_codec import TorchCodec
+from ..models.torch_codec import TorchCodec, decode_statics
 from ..ops.decode_bits import decode_lanes
 
 NB = 100 << 10  # a batched block
@@ -47,14 +51,17 @@ def shared_table_row(n: int, reps: int, device) -> dict:
     comp = codec.encode_device(d, tables=tables)
     ok = torch.equal(codec.decode_device(comp), d)
     s = -(-n // comp.k)
+    w = max(decode_statics(comp.meta(), s), 1)
     eb, gr, sy = tables["e_bound"], tables["g_rank"], tables["sorted_syms"]
 
     def enc_once(pert):
-        return codec.encode_device(d + pert, tables=tables).bit_counts.sum().to(torch.float32)
+        c = codec.encode_device(fused.carry(d, pert), tables=tables)
+        return fused.checksum(c.bit_counts).to(torch.float32)
 
     def combined_once(pert):
-        c = codec.encode_device(d + pert, tables=tables)
-        return decode_lanes(c.words, eb, gr, sy, s).sum().to(torch.float32)
+        c = codec.encode_device(fused.carry(d, pert), tables=tables)
+        o = decode_lanes(c.words[:w], eb, gr, sy, s)
+        return fused.checksum(o.reshape(-1)[:n]).to(torch.float32)
 
     t_c = sustained_seconds(enc_once, reps=reps, device=device)
     t_d = sustained_seconds(decode_body(comp), reps=reps, device=device)
@@ -80,12 +87,12 @@ def batched_row(b: int, reps: int, device) -> dict:
     ok = torch.equal(out.reshape(b, NB), blocks)
 
     def enc_b(pert):
-        _, bits_, t_ = codec.encode_batch(blocks + pert)
-        return (bits_.sum() + t_["enc_table"].sum()).to(torch.float32)
+        _, bits_, t_ = codec.encode_batch(fused.carry(blocks, pert))
+        return (fused.checksum(bits_) + fused.checksum(t_["enc_table"])).to(torch.float32)
 
     def dec_b(pert):
-        o = codec.decode_batch(words + pert.to(torch.int32), bits, tables, NB, statics=statics)
-        return o.sum().to(torch.float32)
+        o = codec.decode_batch(fused.carry(words, pert), bits, tables, NB, statics=statics)
+        return fused.checksum(o).to(torch.float32)
 
     rb = max(2, reps // max(1, b // 8))
     t_cb = sustained_seconds(enc_b, reps=rb, device=device)

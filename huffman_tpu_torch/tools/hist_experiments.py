@@ -13,12 +13,14 @@ against `histogram256`:
   bincount  ``torch.bincount``, the library yardstick (timed only; the
             port never calls it)
 
-Each row gives the sustained ms and GiB/s of ``fn(data + pert)`` from
-`sustained_seconds` (CUDA-graph replays; ``bincount`` reads its maximum
-back to the host, so it cannot be captured and is timed by CUDA events
-around back-to-back calls), the device-busy ms of one ``fn(data)`` from
-the profiler (the sustained body also adds ``pert`` to every byte, a
-full pass over the block), and the kernel launches of one call.
+Each row gives the sustained ms and GiB/s of the TPU tool's body, the
+checksum of ``fn(data + pert)`` (`bench.fused.carry` and
+`bench.fused.checksum`, int32), from `sustained_seconds` (CUDA-graph
+replays; ``bincount`` reads its maximum back to the host, so it cannot
+be captured and is timed by CUDA events around back-to-back calls), the
+device-busy ms of one ``fn(data)`` from the profiler (the sustained body
+also carries ``pert`` onto every byte, a full pass over the block), and
+the kernel launches of one call.
 
 Usage: python3 -m huffman_tpu_torch.tools.hist_experiments [n_mib]
 (default 16; n_mib * 2^20 must be a multiple of 2^19).
@@ -32,6 +34,7 @@ import sys
 import numpy as np
 import torch
 
+from ..bench import fused
 from ..bench.harness import card_line, device_busy_ms, sustained_seconds
 from ..ops import _cuda
 from ..ops.hist_variants import hist_variant, mma_type
@@ -97,7 +100,8 @@ def race_on(data: torch.Tensor, reps: int = 64, tries: int = 3) -> list[dict]:
             timing = "events"
         else:
             def body(pert, fn=fn):
-                return fn(data + pert).sum().to(torch.float32)
+                counts = fn(fused.carry(data, pert)).to(torch.int32)  # bincount's int64 on the CPU
+                return fused.checksum(counts).to(torch.float32)
 
             sec = sustained_seconds(body, reps=reps, tries=tries, device=dev)
             timing = "graph" if dev.type == "cuda" else "host"

@@ -4,17 +4,19 @@ Counterpart: ``tools/probe_batched.py``.  B biased 100 KiB blocks at
 K = 1024 (S = 100), each stage timed alone by
 `bench.harness.sustained_seconds` (CUDA-graph replays on a card):
 
-* ``dep``: the carried dependency alone (``blocks + pert``);
+* ``dep``: the carried dependency alone (`bench.fused.carry` of the
+  blocks);
 * ``hist_b``: hist256_batch;
 * ``table``: the batched `build_coding_device_batch` from the counts;
 * ``body``: the batched `encode_lanes_batch` from the tables;
 * ``full``: the whole ``encode_batch``;
 
-then ``full`` at B = ``--artifact-b`` (160) with reps 2 and ``--reps``,
-which shows whether the JAX tool's few reps at large B (its reps rule)
-move the reading.  The JAX tool's ``hist`` stage (a vmapped single-block
-histogram, the A side of a TPU fix) has no counterpart: the port has one
-batched histogram.
+each summing its results with `bench.fused.checksum` (int32), as the
+JAX tool's bodies do; then ``full`` at B = ``--artifact-b`` (160) with
+reps 2 and ``--reps``, which shows whether the JAX tool's few reps at
+large B (its reps rule) move the reading.  The JAX tool's ``hist`` stage
+(a vmapped single-block histogram, the A side of a TPU fix) has no
+counterpart: the port has one batched histogram.
 
     python3 -m huffman_tpu_torch.tools.probe_batched [--bs 16,64,96,128,160,192] [--out bench_out/probe_batched.json]
 """
@@ -27,6 +29,7 @@ import os
 
 import torch
 
+from ..bench import fused
 from ..bench.harness import sustained_method, sustained_seconds
 from ..bench.workloads import biased_u8
 from ..constants import TPU_MAX_CODE_LEN
@@ -46,8 +49,8 @@ def _blocks(b: int, device) -> torch.Tensor:
 
 def _full(codec, blocks):
     def full(pert):
-        _, bits, t = codec.encode_batch(blocks + pert)
-        return bits.sum() + t["enc_table"].sum()
+        _, bits, t = codec.encode_batch(fused.carry(blocks, pert))
+        return fused.checksum(bits) + fused.checksum(t["enc_table"])
 
     return full
 
@@ -58,12 +61,13 @@ def stage_row(b: int, reps: int, device) -> dict:
     blocks = _blocks(b, device)
     hists = histogram256_batch(blocks)
     enc_t = build_coding_device_batch(hists)["enc_table"]
+    carry, checksum = fused.carry, fused.checksum
     stages = {
-        "dep": lambda pert: (blocks + pert)[0, 0],
-        "hist_b": lambda pert: histogram256_batch(blocks + pert).sum(),
-        "table": lambda pert: build_coding_device_batch(hists + pert.to(torch.int32))[
-            "enc_table"].sum(),
-        "body": lambda pert: encode_lanes_batch(blocks + pert, enc_t, S, BK, W32)[1].sum(),
+        "dep": lambda pert: carry(blocks, pert)[0, 0],
+        "hist_b": lambda pert: checksum(histogram256_batch(carry(blocks, pert))),
+        "table": lambda pert: checksum(build_coding_device_batch(carry(hists, pert))["enc_table"]),
+        "body": lambda pert: checksum(
+            encode_lanes_batch(carry(blocks, pert), enc_t, S, BK, W32)[1]),
         "full": _full(codec, blocks),
     }
     row = {"blocks": b, "bytes": b * NB}

@@ -3,8 +3,8 @@
 Counterpart: ``tools/probe_encode_stages.py``.  Each stage is timed alone
 by `bench.harness.sustained_seconds` (CUDA-graph replays on a card):
 
-* ``dep``: the carried dependency alone (``data + pert``, a rewrite of
-  the block), which every body below but ``table`` pays besides its stage;
+* ``dep``: the carried dependency alone (`bench.fused.carry` of the
+  block), which every body below but ``table`` pays besides its stage;
 * ``hist/1``: hist256's full count of the block;
 * ``hist/S``: the table histogram at the codec's ``hist_stride`` for this
   size (the 1-in-32 row sample from 4 MiB up), as ``encode_device`` runs it;
@@ -13,7 +13,10 @@ by `bench.harness.sustained_seconds` (CUDA-graph replays on a card):
 * ``full``: the whole ``encode_device``.
 
 Each stage's device time is its row less ``dep`` (``table`` carries the
-dependency on 256 counts only).
+dependency on 256 counts only) and less its checksums: as in the JAX
+tool's bodies, each sums its results with `bench.fused.checksum` (int32;
+``kernel`` and ``full`` sum the words too, whose u32 sum JAX adds to the
+int32 ones in int32).
 
     python3 -m huffman_tpu_torch.tools.probe_encode_stages [n_mib] [--out bench_out/probe_encode_stages.json]
 """
@@ -26,6 +29,7 @@ import os
 
 import torch
 
+from ..bench import fused
 from ..bench.harness import sustained_method, sustained_seconds
 from ..bench.workloads import biased_u8
 from ..constants import TPU_MAX_CODE_LEN
@@ -57,19 +61,25 @@ def main(argv=None) -> list[dict]:
     enc_table = build_coding_device(hist0)["enc_table"]
     print(f"n={n} k={k} s={s} w32={w32} hist_stride={hs} ({sustained_method(device)})", flush=True)
 
+    carry, checksum = fused.carry, fused.checksum
+
     def table(pert):
-        return build_coding_device(hist0 + pert.to(torch.int32))["enc_table"].sum()
+        return checksum(build_coding_device(carry(hist0, pert))["enc_table"])
+
+    def kernel(pert):
+        words, bits = encode_lanes(carry(data, pert), enc_table, s, k, w32)
+        return checksum(words) + checksum(bits)
 
     def full(pert):
-        c = codec.encode_device(block + pert)
-        return c.bit_counts.sum() + c.tables["enc_table"].sum()
+        c = codec.encode_device(carry(block, pert))
+        return checksum(c.words) + checksum(c.bit_counts) + checksum(c.tables["enc_table"])
 
     stages = [
-        ("dep", lambda pert: (data + pert)[0]),
-        ("hist/1", lambda pert: table_hist(data + pert, 1).sum()),
-        (f"hist/{hs}", lambda pert: table_hist(data + pert, hs).sum()),
+        ("dep", lambda pert: carry(data, pert)[0]),
+        ("hist/1", lambda pert: checksum(table_hist(carry(data, pert), 1))),
+        (f"hist/{hs}", lambda pert: checksum(table_hist(carry(data, pert), hs))),
         ("table", table),
-        ("kernel", lambda pert: encode_lanes(data + pert, enc_table, s, k, w32)[1].sum()),
+        ("kernel", kernel),
         ("full", full),
     ]
     rows = []

@@ -14,7 +14,7 @@ import torch
 
 from huffman_tpu.bench import workloads as jax_workloads
 from huffman_tpu_torch import TorchCodec
-from huffman_tpu_torch.bench import workloads
+from huffman_tpu_torch.bench import fused, workloads
 from huffman_tpu_torch.ops import _cuda, decode_bits, encode, hist_variants, lookup, table_build
 from huffman_tpu_torch.parallel import sharded
 
@@ -37,6 +37,7 @@ def test_import_leaves_out_jax_and_huffman_tpu():
         "import sys, huffman_tpu_torch, chip_smoke, bench_torch\n"
         "import huffman_tpu_torch.convert, huffman_tpu_torch.container\n"
         "import huffman_tpu_torch.bench.harness, huffman_tpu_torch.bench.table\n"
+        "import huffman_tpu_torch.bench.fused\n"
         "import huffman_tpu_torch.ops.hist_variants\n"
         "import huffman_tpu_torch.tools.hist_experiments, huffman_tpu_torch.tools.run_benchmarks\n"
         "import huffman_tpu_torch.cli, huffman_tpu_torch.coding, huffman_tpu_torch.format\n"
@@ -153,6 +154,10 @@ CUDA_CALLS = {
     "hist_variant": lambda: hist_variants.hist_variant(
         _FakeCudaTensor((1 << 19,), torch.uint8), "base"
     ),
+    "carry": lambda: fused.carry(
+        _FakeCudaTensor((64,), torch.uint8), _FakeCudaTensor((), torch.uint8)
+    ),
+    "checksum": lambda: fused.checksum(_FakeCudaTensor((18, 64), torch.int32)),
 }
 
 
