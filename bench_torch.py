@@ -23,12 +23,15 @@ Bodies, as ``bench.py``'s (``bench.harness.encode_body`` and
 table_build -> encode_lanes) of the block plus a carried 0; decompress is
 ``decode_lanes`` of the first w rows of the words, w from
 ``decode_statics`` as ``_decode_full`` takes them, with the carried 0
-added to those rows alone.  The carried 0 and the int32 sums that end
-each body are one pass each, as XLA fuses them in ``bench.py``: the
-kernels ``carry`` and ``checksum`` (``bench.fused``,
-``csrc/bench_ops.cu``).  ``bench.harness.sustained_seconds`` times
-each: one step captured in a CUDA graph, R replays between CUDA events,
-cost (t(R) - t(1)) / (R - 1), reps 64, best of 4.
+added to those rows alone.  As in ``bench.py``'s ``fori_loop``, a step
+is ``acc + body(isnan(acc))``, the scalar work fused into the passes
+around the codec: the kernel ``carry`` adds the accumulator's NaN test
+to the body's input, and the kernel ``fold`` adds the float32 of the
+body's int32 sum to the accumulator, one pass over the sums' inputs
+(``bench.fused``, ``csrc/bench_ops.cu``), so a step launches the codec's
+kernels, one carry and one fold.  ``bench.harness.sustained_seconds``
+times each: one step captured in a CUDA graph, R replays between CUDA
+events, cost (t(R) - t(1)) / (R - 1), reps 64, best of 4.
 
 Watchdog: CUDA init, the kernels' build and the first fetch must end
 within BENCH_PROBE_DEADLINE_S (default 150 s), the whole run within

@@ -22,13 +22,18 @@ Phases (any failure exits non-zero; no phase failure is caught):
    16 MiB blocks, K = 8 with S = 4096, K = 24, and offset views at
    K = 1001 and at 16 MiB), and hist256's sampled and full counts of those and of a
    constant and a uniform 16 MiB block.  The measurement harness's
-   kernels (``bench.fused``: carry, the carried 0, with pert 0 and 1;
-   checksum, the int32 sum) must equal their plain versions exactly on
-   the bodies' inputs (the 16 MiB block, the first w and all W rows of
-   words, the bit counts, the coding table) and on 16 MiB of 0xFF (the
-   sum wraps to -2^24, 0xFF + 1 to 0), a 16 MiB view 3 bytes past 16-byte
-   alignment, 16 MiB + 13 bytes, u8 views at every offset 1-15 and int32
-   views 1-3 words past alignment, and lengths 0 to 31.
+   kernels (``bench.fused``: carry, which adds the accumulator's NaN test,
+   with acc 0 and NaN; fold, which adds the float32 of the int32 sum of
+   one to four tensors to the accumulator) must equal their plain
+   versions exactly on the bodies' inputs (the 16 MiB block, the first w
+   and all W rows of words, the bit counts, the coding table) and on
+   16 MiB of 0xFF (the sum wraps to -2^24, 0xFF + 1 to 0), a 16 MiB view
+   3 bytes past 16-byte alignment, 16 MiB + 13 bytes, u8 views at every
+   offset 1-15 and int32 views 1-3 words past alignment, and lengths 0
+   to 31; fold also on the bodies' sets of tensors, a NaN accumulator,
+   totals past 2^24 (one conversion of the int32 total), four mixed
+   tensors off alignment, 3 launches back to back and 64 replays of a
+   captured carry and fold (the kernel must leave its scratch word 0).
 4. End to end: ``TorchCodec(device="cuda")`` on the 16 MiB biased block:
    encode -> serialize -> deserialize -> decode gives the input back, the
    blob equals the CPU path's blob, the ratio is 2.1626, compress /
@@ -63,9 +68,10 @@ Phases (any failure exits non-zero; no phase failure is caught):
    decode with statics precomputed).  Also hist256's full count of the
    16 MiB block, and hist256_onehot in each MMA type on it, each beside
    its plain version and ``torch.bincount`` (the library yardstick).
-   carry and checksum at 16 MiB (and at the decode body's words, bit
+   carry and fold at 16 MiB (and at the decode body's words, the bit
    counts and table) beside their plain versions and the PyTorch ops
-   they replace (``x + pert``; ``x.sum(dtype=torch.int32)`` with its cast).
+   they replace (the NaN test, its cast and the add; the int32 sums,
+   their cast and the float add).
 6. hist256_onehot (the histogram race's kernel) in each MMA type (s8,
    bf16, tf32) must equal its plain version and hist256's full count on
    five 16 MiB blocks (biased, uniform, constant, whose one bin is 2^24,
@@ -79,9 +85,13 @@ Phases (any failure exits non-zero; no phase failure is caught):
    uniform workloads at 4 MiB over the suite's rows
    (``tools.run_benchmarks.suite_codecs``, every row must round-trip),
    and ``race(16 MiB)`` (every row OK); the counters of hist256_onehot,
-   hist256, table_build, encode_lanes, decode_lanes, carry and checksum
-   must be nonzero after, and carry and checksum must have launched in
-   each of the three.  It runs after phase 5's profiler windows, which leave every
+   hist256, table_build, encode_lanes, decode_lanes, carry and fold
+   must be nonzero after, and carry and fold must have launched in
+   each of the three.  One step of the encode and of the decode body
+   must launch exactly the codec's kernels, hist256's memset, one carry
+   and one fold (``harness.device_ops``; printed with the busy ms a
+   step), and each body's accumulator after 65 steps (64 graph replays)
+   must be 65 float32 adds of what one step adds on the CPU.  It runs after phase 5's profiler windows, which leave every
    later launch costing the host more; its timings replay CUDA graphs,
    one launch per rep.
 8. The ref profile (``TorchRefCodec``, the reference's K-stream format).
@@ -119,7 +129,7 @@ Phases (any failure exits non-zero; no phase failure is caught):
    meshes (1, 2) and (2, 1) on 16 MiB: each rank's blob, decompressed
    bytes and ``roundtrip`` arrays must equal the world-size-1 results.
    Times beside the card: ``tools.bench_sharded``'s one-rank row (4 MiB,
-   K = 8192; carry and checksum must launch in its body), the bytes
+   K = 8192; carry and fold must launch in its body), the bytes
    API's GiB/s at 64 MiB (median of 3, host clock),
    one ``sharded_roundtrip`` of the 64 blocks by CUDA events, its
    device-busy share and each device operation.
@@ -139,32 +149,33 @@ Phases (any failure exits non-zero; no phase failure is caught):
    ``chiprun_out/``: ``bench_streaming --fast``, ``bench_small --reps 16``,
    ``probe_k``, ``probe_encode_stages`` and ``probe_batched --bs
    16,64,160``; every row that has ``roundtrip_ok`` must hold it, and
-   carry and checksum must launch in each tool's bodies.
+   carry and fold must launch in each tool's bodies.
 11. The benchmark entry: ``python3 bench_torch.py`` (the supervisor) in a
    child process under a 300 s limit.  Its last stdout line must have a
    value, ``roundtrip_ok``, ratio 2.1626, ratio_payload 2.1916, k_lanes
    131072 and launches of hist256, table_build, encode_lanes and
-   decode_lanes, carry and checksum; it is printed with the card.  Then,
-   in this process, each body's launches of carry and checksum (one
-   call), the sustained ms of the entry's encode and decode bodies each
-   in turns with the same body in PyTorch's own ops (``+ pert``,
-   ``.sum()``; marked as comparison rows), and of an all-rows decode body
-   (the carried 0 added to all 61 rows, a u8 sum; a comparison row), and
-   each device operation of every body's timed step, by name.  The
-   entry's decode step must hold no device operation but decode_lanes,
-   carry and checksum that takes 0.01 ms or more: a u8 -> int32 copy of
-   the decoded 16 MiB moves 80 MB, 0.025 ms at the card's peak.
+   decode_lanes, carry and fold; it is printed with the card.  Then, in
+   this process, each body's launches of carry and fold (one call), the
+   sustained ms of the entry's encode and decode bodies each in turns
+   with the same body in PyTorch's own ops (``isnan``, ``+``,
+   ``.sum()``, ``add_``; marked as comparison rows), and of an all-rows
+   decode body (the carried 0 added to all 61 rows, a u8 sum; a
+   comparison row), and each device operation of every body's timed
+   step, by name.  The entry's encode step must launch exactly hist256,
+   its memset, table_build, encode_lanes, carry and fold, and its decode
+   step decode_lanes, carry and fold, each once: no PyTorch op and no
+   other memset.
 
 The line before the last is a JSON object of the kernels (launches
 counted in phases 4, 4b, 7, 8, 9 and 10; ms is the kernel's device time at the
 single-block shapes, hist256_batch's at B = 160, hist256_onehot's in
-bf16 (the TPU's base variant) at 16 MiB, carry's and checksum's on the
-16 MiB u8 block; plain_ms the plain version's call; bound_ms the least
+bf16 (the TPU's base variant) at 16 MiB, carry's and fold's on the
+16 MiB u8 block with the L2 evicted; plain_ms the plain version's call; bound_ms the least
 time of the same work on an H100 at its published peaks, from the bytes
 moved or the tensor operations, and for table_build, which moves 2 KiB,
 from its serial chain of dependent steps; library_ms ``torch.bincount``'s
 call where it computes the same function, and for carry ``x + pert``,
-for checksum ``x.sum(dtype=torch.int32)``); the last is ``{"ok": true, "device": {...}}``.  Imports
+for fold ``x.sum(dtype=torch.int32)``); the last is ``{"ok": true, "device": {...}}``.  Imports
 neither jax nor huffman_tpu.
 """
 
@@ -212,15 +223,22 @@ KERNELS = {
         "huffman_tpu_torch/csrc/hist256_onehot.cu",
         "tools/hist_experiments.py:36",
     ),
-    # The measurement harness's two passes: XLA fusions in the JAX bodies,
-    # no Pallas kernel (bench.py:174 ``d + pert``, :190 the int32 sum).
+    # The measurement harness's two passes: XLA fusions in the JAX loop,
+    # no Pallas kernel (bench.py:174 ``d + pert`` of the harness's
+    # ``isnan(acc)``, :176 the int32 sum, converted and added to ``acc``).
     "carry": ("huffman_tpu_torch/csrc/bench_ops.cu", "bench.py:174"),
-    "checksum": ("huffman_tpu_torch/csrc/bench_ops.cu", "bench.py:190"),
+    "fold": ("huffman_tpu_torch/csrc/bench_ops.cu", "bench.py:176"),
 }
 # The kernels each path must launch.
 SINGLE_PATH = ("hist256", "table_build", "encode_lanes", "decode_lanes")
 BATCHED_PATH = ("hist256_batch", "table_build", "encode_lanes", "decode_lanes")
-FUSED = ("carry", "checksum")
+FUSED = ("carry", "fold")
+# The device operations of one sustained step of bench_torch.py's bodies,
+# each launched once: the codec's kernels (hist256's memset among them),
+# one carry and one fold, as one iteration of bench.py's fori_loop.
+ENCODE_STEP = ("hist256_kernel", "Memset", "table_build_kernel", "encode_lanes_kernel",
+               "carry_kernel", "fold_kernel")
+DECODE_STEP = ("decode_lanes_kernel", "carry_kernel", "fold_kernel")
 MEASURE_PATH = ("hist256_onehot",) + SINGLE_PATH + FUSED
 REF_PATH = ("hist256", "encode_lanes", "decode_lanes")
 REF_KS = (65536, 4096)  # the ref profile's lanes at 16 MiB: S = 256 and 4096
@@ -340,15 +358,46 @@ def expect_equal(name: str, a, b) -> int:
 
 def fused_launches(seen: dict, label: str, fn):
     """``fn()``'s result; ``seen[label]`` takes the launches of carry and
-    checksum during it, which must both be nonzero."""
+    fold during it, which must both be nonzero."""
     from huffman_tpu_torch.ops import _cuda
 
     before = dict(_cuda.LAUNCHES)
     result = fn()
     seen[label] = {k: _cuda.LAUNCHES[k] - before[k] for k in FUSED}
     if not all(seen[label].values()):
-        raise AssertionError(f"{label}: carry and checksum launched {seen[label]}")
+        raise AssertionError(f"{label}: carry and fold launched {seen[label]}")
     return result
+
+
+def step_ops(label: str, body, dev, expected: tuple | None = None) -> float:
+    """Prints each device operation of one step of ``body`` as
+    `sustained_seconds` runs it (``harness.device_ops``: ms a launch,
+    launches a step) and the busy ms a step, which it returns.  With
+    ``expected``, fails unless the step's operations are exactly those,
+    each once.  The trace may lose launches (as `kernel_ms` says): each
+    operation's mean over the launches it recorded, times its launches a
+    step (the recorded count a step, rounded up), and the share
+    recorded."""
+    from huffman_tpu_torch.bench.harness import device_ops, sustained_step
+
+    _, step = sustained_step(body, dev)
+    ops = [(name, math.ceil(count - 0.01), op_ms / count, count)
+           for name, count, op_ms in device_ops(step)]
+    for name, per_step, launch_ms, count in ops:
+        print(f"{label} step device operation: {name} {launch_ms:.6f} ms a launch, "
+              f"{per_step} a step (recorded {count:g} a step)")
+    busy = sum(n * launch_ms for _, n, launch_ms, _ in ops)
+    print(f"{label} step: device busy {busy:.6f} ms, {sum(n for _, n, _, _ in ops)} launches")
+    if expected is not None:
+        got = {}
+        for name, per_step, _, _ in ops:
+            keys = [k for k in expected if k in name]
+            if len(keys) != 1:
+                raise AssertionError(f"{label}: a step launched {name}, outside {expected}")
+            got[keys[0]] = got.get(keys[0], 0) + per_step
+        if got != dict.fromkeys(expected, 1):
+            raise AssertionError(f"{label}: a step launched {got}, not each of {expected} once")
+    return busy
 
 
 def sharded_rank(
@@ -427,6 +476,7 @@ def main() -> None:
         device_ops,
         encode_body,
         sustained_seconds,
+        sustained_step,
     )
     from huffman_tpu_torch.constants import TPU_MAX_CODE_LEN
     from huffman_tpu_torch.ops import _cuda
@@ -581,11 +631,15 @@ def main() -> None:
           f"sampled and full counts equal the plain version's on those and on "
           f"{', '.join(kernel_cases.hist_blocks(0))} 16 MiB blocks", flush=True)
 
-    # The measurement harness's carry and checksum on the bodies' inputs
-    # and on their hard ones: a sum that wraps, every misalignment, ragged
-    # tails and short lengths.
-    p0 = torch.zeros((), dtype=torch.uint8, device=dev)
-    p1 = torch.ones((), dtype=torch.uint8, device=dev)
+    # The measurement harness's carry and fold on the bodies' inputs and
+    # on their hard ones: sums that wrap, totals past 2^24, a NaN
+    # accumulator, every misalignment, ragged tails and short lengths;
+    # then folds launched back to back and steps replayed from a CUDA
+    # graph, which hold only if each fold leaves its scratch word zeroed.
+    acc0 = fused.accumulator(dev)
+    acc_nan = fused.accumulator(dev)
+    acc_nan.fill_(math.nan)
+    p0 = torch.zeros((), dtype=torch.uint8, device=dev)  # the carried 0 in PyTorch's ops
     spare = torch.from_numpy(workloads.biased_u8(N + 32, 3)).to(dev)
     ones = torch.full((N,), 0xFF, dtype=torch.uint8, device=dev)
     fused_in = {
@@ -604,19 +658,85 @@ def main() -> None:
         fused_in[f"{K} + 5 int32 words, {off} past alignment"] = words.view(-1)[off : off + K + 5]
     for n_short in (0, 1, 15, 16, 17, 31):
         fused_in[f"{n_short} bytes"] = spare[5 : 5 + n_short]
-    err["carry"] = err["checksum"] = 0
+    past24 = (torch.tensor([1 << 24, 1], dtype=torch.int32, device=dev),
+              torch.ones(1, dtype=torch.int32, device=dev))
+    # (acc before, the tensors of one fold)
+    fold_in = {f"fold {name}": (0.0, (x,)) for name, x in fused_in.items()}
+    fold_in |= {
+        "fold 16 MiB biased u8 into -2.5": (-2.5, (data,)),
+        "fold into a NaN acc": (math.nan, (bits,)),
+        "fold bit counts and table (the encode body's)": (0.0, (bits, enc)),
+        "fold words, bit counts and table (probe_encode_stages' full)": (0.0, (words, bits, enc)),
+        "fold 2^24 + 1 and 1, one total": (0.0, past24),
+        "fold 1 into 2^24": (float(1 << 24), past24[1:]),
+        "fold four: u8 and int32 views off alignment, 0xFF, bit counts": (
+            1.5, (spare[7 : 7 + (1 << 20) + 3], words.view(-1)[1 : 1 + K + 5], ones, bits)),
+    }
+
+    def accs(value: float):
+        pair = fused.accumulator(dev), fused.accumulator(dev)
+        for a in pair:
+            a.fill_(value)
+        return pair
+
+    def expect_same_float(name: str, got, want) -> float:
+        """``got`` (the kernel's accumulator) bit for bit ``want`` (the
+        plain version's), or both NaN."""
+        g, w = got.view(torch.int32).item(), want.view(torch.int32).item()
+        if g != w and not (math.isnan(float(got)) and math.isnan(float(want))):
+            raise AssertionError(f"{name}: kernel {float(got)!r} != plain {float(want)!r}")
+        return float(got)
+
+    def expect_fold(name: str, value: float, xs, launches: int = 1) -> float:
+        got, want = accs(value)
+        for _ in range(launches):
+            fused.fold(got, *xs)
+            fused.fold_plain(want, *xs)
+        return expect_same_float(name, got, want)
+
+    def graph_steps(body, steps: int):
+        """The accumulator after a warm-up step of ``body`` and ``steps``
+        replays of one step captured in a CUDA graph, as
+        `sustained_seconds` runs it."""
+        acc, step = sustained_step(body, dev)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        for _ in range(steps):
+            graph.replay()
+        torch.cuda.synchronize()
+        return acc
+
+    err["carry"] = err["fold"] = 0
     for name, x in fused_in.items():
-        for pert in (p0, p1):
+        for a in (acc0, acc_nan):
             err["carry"] = max(err["carry"], expect_equal(
-                f"carry {name} + {int(pert)}", fused.carry(x, pert), fused.carry_plain(x, pert)))
-        err["checksum"] = max(err["checksum"], expect_equal(
-            f"checksum {name}", fused.checksum(x), fused.checksum_plain(x)))
-    if int(fused.checksum(ones)) != -(1 << 24) or int(fused.carry(ones, p1).max()) != 0:
-        raise AssertionError("16 MiB of 0xFF: the checksum does not wrap to -2^24, or the "
-                             "carry does not wrap 0xFF + 1 to 0")
+                f"carry {name}, acc {float(a)}", fused.carry(x, a), fused.carry_plain(x, a)))
+    folded = {name: expect_fold(name, value, xs) for name, (value, xs) in fold_in.items()}
+    if (folded["fold 16 MiB of 0xFF"] != -(1 << 24) or int(fused.carry(ones, acc_nan).max()) != 0
+            or folded["fold 2^24 + 1 and 1, one total"] != (1 << 24) + 2):
+        raise AssertionError("16 MiB of 0xFF does not fold to -2^24, 0xFF + 1 does not carry "
+                             "to 0, or 2^24 + 1 and 1 do not fold to 2^24 + 2")
+    for name, x in (("16 MiB biased u8", data), ("bit counts", bits)):
+        expect_fold(f"3 folds of {name} back to back", 0.5, (x,), launches=3)
+    replays = {"16 MiB biased u8": (data,), "bit counts and table": (bits, enc)}
+    for name, xs in replays.items():
+        got = graph_steps(lambda acc, xs=xs: fused.fold(acc, fused.carry(xs[0], acc), *xs[1:]), 64)
+        want = fused.accumulator(dev)
+        for _ in range(65):
+            fused.fold_plain(want, fused.carry_plain(xs[0], want), *xs[1:])
+        expect_same_float(f"64 graph replays of carry and fold, {name}", got, want)
     torch.cuda.synchronize()
-    print(f"carry (pert 0 and 1) and checksum equal their plain versions on "
-          f"{len(fused_in)} inputs: {', '.join(fused_in)}", flush=True)
+    print(f"carry (acc 0 and NaN) equals its plain version on {len(fused_in)} inputs: "
+          f"{', '.join(fused_in)}; fold equals its plain version bit for bit on "
+          f"{len(fold_in)} folds ({', '.join(fold_in)}), 3 launches back to back, and 64 "
+          f"replays of a captured carry and fold on {' and on '.join(replays)}", flush=True)
     del ones, spare
 
     # 4. End to end on the card; the launch counters cover this phase only.
@@ -795,13 +915,13 @@ def main() -> None:
         "hist256": cuda_ms(lambda: torch.bincount(sample, minlength=256), 20),
         "hist256_onehot": cuda_ms(lambda: torch.bincount(data, minlength=256), 20),
     }
-    # carry and checksum on the 16 MiB block beside their plain versions
-    # and the one PyTorch call each replaces in the bodies (for carry the
-    # same call as its plain version).
-    fcalls = {"carry": (lambda: fused.carry(data, p0), lambda: fused.carry_plain(data, p0),
+    # carry and fold on the 16 MiB block beside their plain versions and
+    # the one PyTorch call that computes the pass: the add of a carried 0
+    # computed beforehand, the int32 sum.
+    fcalls = {"carry": (lambda: fused.carry(data, acc0), lambda: fused.carry_plain(data, acc0),
                         lambda: data + p0),
-              "checksum": (lambda: fused.checksum(data), lambda: fused.checksum_plain(data),
-                           lambda: data.sum(dtype=torch.int32))}
+              "fold": (lambda: fused.fold(acc0, data), lambda: fused.fold_plain(acc0, data),
+                       lambda: data.sum(dtype=torch.int32))}
     for name, (kern, plain, lib) in fcalls.items():
         call_ms[name], plain_ms[name] = cuda_ms(kern, 50), cuda_ms(plain, 20)
         library_ms[name] = cuda_ms(lib, 20)
@@ -869,16 +989,23 @@ def main() -> None:
               f"torch.bincount call {library_ms['hist256_onehot']:.6f} ms")
     ms["hist256_onehot"] = full_ms["bf16"]
     plain_ms["hist256_onehot"] = fplain_ms["bf16"]
-    # carry and checksum at the bodies' shapes, each beside its bound, its
-    # call's device operations (checksum's memset too) and the device time
-    # of the PyTorch ops it replaces there.
+    # carry and fold at the bodies' shapes, each beside its bound, its
+    # call's device operations and the device time of the PyTorch ops
+    # that would compute it in a step: the NaN test, the cast and the add
+    # for carry; the sums, their int32 add, the cast and the float add
+    # for fold.
+    def isnan_u8(acc):
+        return torch.isnan(acc).to(torch.uint8)
+
     fshapes = (
-        ("carry", "16 MiB u8 (the encode body's)", data, lambda x: x + p0),
-        ("carry", f"({w_scan}, {K}) int32 words (the decode body's)", words[:w_scan],
-         lambda x: x + p0.to(torch.int32)),
-        ("checksum", "16 MiB u8 (the decode body's)", data, lambda x: x.sum(dtype=torch.int32)),
-        ("checksum", f"({K},) int32 bit counts (the encode body's)", bits, lambda x: x.sum()),
-        ("checksum", "(256,) int32 coding table (the encode body's)", enc, lambda x: x.sum()),
+        ("carry", "16 MiB u8 (the encode body's)", (data,), lambda x: x + isnan_u8(acc0)),
+        ("carry", f"({w_scan}, {K}) int32 words (the decode body's)", (words[:w_scan],),
+         lambda x: x + isnan_u8(acc0).to(torch.int32)),
+        ("fold", "16 MiB u8 (the decode body's)", (data,),
+         lambda x: acc0.add_(x.sum(dtype=torch.int32).to(torch.float32))),
+        ("fold", f"({K},) int32 bit counts and (256,) table (the encode body's)", (bits, enc),
+         lambda x, t: acc0.add_((x.sum(dtype=torch.int32) + t.sum(dtype=torch.int32))
+                                .to(torch.float32))),
     )
     # Back to back, a 16 MiB block and its 16 MiB result stay in the 50 MB
     # L2 and the kernels beat the device-memory bound; so at 16 MiB each
@@ -887,27 +1014,29 @@ def main() -> None:
     # device memory).  A write would leave dirty lines, whose write-back
     # the kernel would pay.
     scrub = torch.zeros(128 << 20, dtype=torch.uint8, device=dev)
-    for name, label, x, replaced in fshapes:
+    for name, label, xs, replaced in fshapes:
+        nbytes = sum(x.numel() * x.element_size() for x in xs)
         if name == "carry":
-            fn, fb = (lambda x=x: fused.carry(x, p0)), bound(2 * x.numel() * x.element_size() + 1)
+            fn, fb = (lambda xs=xs: fused.carry(xs[0], acc0)), bound(2 * nbytes + 4)
         else:
-            fn, fb = (lambda x=x: fused.checksum(x)), bound(x.numel() * x.element_size() + 4)
-        k_ms = kernel_ms(fn, name, match=f"{name}_kernel<")
-        if x is data:
-            ms[name] = kernel_ms(lambda fn=fn: (scrub.max(), fn()), name,
-                                 match=f"{name}_kernel<")
+            fn, fb = (lambda xs=xs: fused.fold(acc0, *xs)), bound(nbytes + 4)
+        match = "carry_kernel<" if name == "carry" else "fold_kernel("
+        k_ms = kernel_ms(fn, name, match=match)
+        cold16 = xs[0] is data
+        if cold16:
+            ms[name] = kernel_ms(lambda fn=fn: (scrub.max(), fn()), name, match=match)
         print(f"time {name} {label}: kernel {k_ms:.6f} ms device back to back"
-              + (f", {ms[name]:.6f} ms after the L2 is evicted" if x is data else "")
+              + (f", {ms[name]:.6f} ms after the L2 is evicted" if cold16 else "")
               + f" (bound {fb[0]:.6f}, {fb[1]}), its call's device operations "
               f"{device_busy_ms(fn):.6f} ms; the PyTorch ops it replaces "
-              f"{device_busy_ms(lambda x=x: replaced(x)):.6f} ms device"
+              f"{device_busy_ms(lambda xs=xs: replaced(*xs)):.6f} ms device"
               + (f"; call {call_ms[name]:.6f} ms, plain {plain_ms[name]:.6f} ms, library "
-                 f"call {library_ms[name]:.6f} ms (events)" if x is data else ""))
-        if x is data:
-            for op, count, op_ms in device_ops(lambda x=x: replaced(x)):
-                print(f"  replaced by {name} at 16 MiB, device operation: {op} x{count:g} "
-                      f"{op_ms:.6f} ms")
-            cold = device_ops(lambda x=x: (scrub.max(), replaced(x)))
+                 f"call {library_ms[name]:.6f} ms (events)" if cold16 else ""))
+        for op, count, op_ms in device_ops(lambda xs=xs: replaced(*xs)):
+            print(f"  replaced by {name}, {label}, device operation: {op} x{count:g} "
+                  f"{op_ms:.6f} ms")
+        if cold16:
+            cold = device_ops(lambda xs=xs: (scrub.max(), replaced(*xs)))
             print("  the same after a 128 MiB read that evicts the L2 (the read listed too): "
                   + ", ".join(f"{op[:70]} {op_ms:.6f} ms" for op, _, op_ms in cold))
     del scrub
@@ -998,6 +1127,31 @@ def main() -> None:
           f"the decode body over the first {w_scan} of {w32} rows of words); "
           f"phase 5's device path by events: encode {gib / (e_ms / 1e3):.4f}, "
           f"decode {gib / (dd_ms / 1e3):.4f} GiB/s", flush=True)
+    # One step of each of the bodies bench_torch_codec and bench_torch.py
+    # time: exactly the codec's kernels, hist256's memset, one carry and
+    # one fold.  The accumulator after 65 steps (one eager, 64 graph
+    # replays) must be 65 float32 adds of what one step of the same body
+    # adds on the CPU.
+    codec7, cpu7 = TorchCodec(device=dev), TorchCodec(device="cpu")
+    data7 = torch.from_numpy(data_np)
+    bodies7 = {
+        "encode": (encode_body(codec7, data), encode_body(cpu7, data7), ENCODE_STEP),
+        "decode": (decode_body(codec7.encode_device(data)),
+                   decode_body(cpu7.encode_device(data7)), DECODE_STEP),
+    }
+    for key, (body, cpu_body, expected) in bodies7.items():
+        step_ops(f"bench_torch.py {key} body ({card})", body, dev, expected)
+        cpu_acc, cpu_step = sustained_step(cpu_body, "cpu")
+        cpu_step()
+        want = np.float32(0)
+        for _ in range(65):
+            want = np.float32(want + np.float32(cpu_acc))
+        got = np.float32(graph_steps(body, 64).cpu())
+        if got.tobytes() != want.tobytes():
+            raise AssertionError(f"{key} body: accumulator {got!r} after 65 steps on the card, "
+                                 f"{want!r} from the CPU's step")
+        print(f"{key} body: accumulator after 65 steps on the card {float(got)!r} = 65 adds of "
+              f"the CPU step's {float(cpu_acc)!r}", flush=True)
     suite = fused_launches(seen7, "run_suite",
                            lambda: run_suite(["biased", "uniform"], suite_codecs(dev), 4 << 20,
                                              reps=8))
@@ -1018,7 +1172,7 @@ def main() -> None:
     if missing:
         raise AssertionError(f"measurement path never launched {missing}")
     print(f"launches in the measurement phase: {json.dumps(launches_m)} "
-          f"({time.perf_counter() - t7:.1f} s); of carry and checksum by call: "
+          f"({time.perf_counter() - t7:.1f} s); of carry and fold by call: "
           f"{json.dumps(seen7)}", flush=True)
 
     # 8. The ref profile.  Kernels against their plain versions first, at
@@ -1248,7 +1402,7 @@ def main() -> None:
     seen9 = {}
     row = fused_launches(seen9, "one_rank_row", lambda: bench_sharded.one_rank_row(4, 8192, dev))
     print(f"bench_sharded one-rank row (4 x 1 MiB, K=8192; {card}): {json.dumps(row)}; "
-          f"launches of carry and checksum {json.dumps(seen9['one_rank_row'])}")
+          f"launches of carry and fold {json.dumps(seen9['one_rank_row'])}")
     gib64 = SN / (1 << 30)
     sc_ms = host_ms(lambda: sc.compress(raw64), reps=3)
     sd_ms = host_ms(lambda: sc.decompress(blob64), reps=3)
@@ -1261,8 +1415,8 @@ def main() -> None:
     # Each operation runs once a step, and late in the run the trace may
     # lose launches (as `kernel_ms` says): its mean over the launches it
     # recorded, and the share of the steps recorded.
-    step_ops = [(name, count, op_ms / count) for name, count, op_ms in device_ops(step)]
-    step_busy = sum(launch_ms for _, _, launch_ms in step_ops)
+    ops9 = [(name, count, op_ms / count) for name, count, op_ms in device_ops(step)]
+    step_busy = sum(launch_ms for _, _, launch_ms in ops9)
     print(f"sharded bytes API 64 MiB (median of 3, host clock; {card}): compress {sc_ms:.3f} ms "
           f"= {gib64 / (sc_ms / 1e3):.4f} GiB/s, decompress {sd_ms:.3f} ms = "
           f"{gib64 / (sd_ms / 1e3):.4f} GiB/s")
@@ -1275,7 +1429,7 @@ def main() -> None:
         "encode_lanes_kernel": bound(SN + nb64 * 256 * 4 + words64.numel() * 4 + bits64.numel() * 4),
         "decode_lanes_kernel": bound(int(bits64.sum()) / 8 + nb64 * tabs9 + SN),
     }
-    for name, count, launch_ms in step_ops:
+    for name, count, launch_ms in ops9:
         b9 = next((v for key, v in step_bounds.items() if key + "(" in name), None)
         print(f"sharded_roundtrip 64 x 1 MiB device operation: {name} {launch_ms:.6f} ms a "
               f"launch (recorded in {count:g} of the steps)"
@@ -1371,7 +1525,7 @@ def main() -> None:
             tool_out("probe_encode_stages")))
         pbatched = fused_launches(seen10, "probe_batched", lambda: probe_batched.main(
             ["--bs", "16,64,160", *tool_out("probe_batched")]))
-    print(f"launches of carry and checksum by tool: {json.dumps(seen10)}")
+    print(f"launches of carry and fold by tool: {json.dumps(seen10)}")
     tool_rows = ([streaming["streaming_shared_table"]] + streaming["batched_100KiB_curve"]
                  + [r for rows in small.values() for r in rows] + ks)
     bad = [r for r in tool_rows if not r["roundtrip_ok"]]
@@ -1409,28 +1563,30 @@ def main() -> None:
           f"{lines11[-1]}", flush=True)
     # The bodies in this process, on phase 4's block: the entry's encode
     # and first-w-rows decode bodies, each in turns with the same body in
-    # PyTorch's own ops (a u8 `+ pert`, an int64 `.sum()` of the bit
-    # counts and table, an int32 `+ pert` on the words, `sum(dtype=int32)`
-    # of the bytes, which PyTorch widens first) and an all-rows decode
-    # body (the carried 0 added to all W rows, a u8 sum, which PyTorch
-    # widens to int64): the last three are comparison rows.  Then the
-    # device operations of each body's step as sustained_seconds captures
-    # it.
+    # PyTorch's own ops (the NaN test cast to u8 and added, an int64
+    # `.sum()` of the bit counts and table, an int32 add on the words,
+    # `sum(dtype=int32)` of the bytes, which PyTorch widens first, each
+    # sum cast and added to the accumulator) and an all-rows decode body
+    # (the carried 0 added to all W rows, a u8 sum, which PyTorch widens to
+    # int64): the last three are comparison rows.  Then the device
+    # operations of each body's step as sustained_seconds captures it;
+    # the entry's steps must be exactly the codec's kernels, hist256's
+    # memset, one carry and one fold.
     ct = comp.tables
     w11 = max(decode_statics(comp.meta(), s), 1)
     tabs11 = (ct["e_bound"], ct["g_rank"], ct["sorted_syms"])
 
-    def torch_ops_encode_body(pert):
-        c = codec.encode_device(data + pert)
-        return (c.bit_counts.sum() + c.tables["enc_table"].sum()).to(torch.float32)
+    def torch_ops_encode_body(acc):
+        c = codec.encode_device(data + torch.isnan(acc).to(torch.uint8))
+        acc.add_((c.bit_counts.sum() + c.tables["enc_table"].sum()).to(torch.float32))
 
-    def torch_ops_decode_body(pert):
-        o = decode_lanes(comp.words[:w11] + pert.to(torch.int32), *tabs11, s)
-        return o.reshape(-1)[:N].sum(dtype=torch.int32).to(torch.float32)
+    def torch_ops_decode_body(acc):
+        o = decode_lanes(comp.words[:w11] + torch.isnan(acc).to(torch.int32), *tabs11, s)
+        acc.add_(o.reshape(-1)[:N].sum(dtype=torch.int32).to(torch.float32))
 
-    def all_rows_body(pert):
-        o = decode_lanes(comp.words + pert.to(torch.int32), *tabs11, s)
-        return o.sum().to(torch.float32)
+    def all_rows_body(acc):
+        o = decode_lanes(comp.words + torch.isnan(acc).to(torch.int32), *tabs11, s)
+        acc.add_(o.sum().to(torch.float32))
 
     enc_key, dec_key = "encode", f"decode, first {w11} rows"
     bodies = {
@@ -1443,8 +1599,8 @@ def main() -> None:
     keys = list(bodies)
     seen11 = {}
     for key in (enc_key, dec_key):
-        fused_launches(seen11, key, lambda key=key: bodies[key](p0))
-    print(f"launches of carry and checksum by body, one call: {json.dumps(seen11)}")
+        fused_launches(seen11, key, lambda key=key: bodies[key](fused.accumulator(dev)))
+    print(f"launches of carry and fold by body, one call: {json.dumps(seen11)}")
     turns11 = {key: [] for key in keys}
     for new, old in ((keys[0], keys[2]), (keys[1], keys[3]), (keys[4], keys[4])):
         for key in (old, new, new, old) if new != old else (new, new):
@@ -1452,27 +1608,9 @@ def main() -> None:
     for key, times in turns11.items():
         print(f"bench body {key} ({card}): sustained ms, two readings taken in turns "
               f"(PyTorch ops, kernels, kernels, PyTorch ops): {json.dumps(times)}")
-    # The trace may lose launches (as `kernel_ms` says): each operation's
-    # mean over the launches it recorded, times its launches a step (the
-    # recorded count a step, rounded up), and the share recorded.
-    acc11 = torch.zeros((), dtype=torch.float32, device=dev)
+    expected11 = {enc_key: ENCODE_STEP, dec_key: DECODE_STEP}
     for key, body in bodies.items():
-        step11 = lambda body=body: acc11.add_(body(torch.isnan(acc11).to(torch.uint8)))  # noqa: E731
-        ops11 = [(name, math.ceil(count - 0.01), op_ms / count, count)
-                 for name, count, op_ms in device_ops(step11)]
-        for name, per_step, launch_ms, count in ops11:
-            print(f"bench body {key} step device operation: {name} {launch_ms:.6f} ms a launch, "
-                  f"{per_step} a step (recorded {count:g} a step)")
-        print(f"bench body {key} step ({card}): device busy "
-              f"{sum(n * launch_ms for _, n, launch_ms, _ in ops11):.6f} ms")
-        if key == dec_key:
-            # Any pass over the decoded 16 MiB other than the checksum's:
-            # a u8 -> int32 copy moves 80 MB, 0.025 ms at the card's peak.
-            big = [(name, launch_ms) for name, _, launch_ms, _ in ops11 if launch_ms >= 0.01
-                   and not any(k in name for k in
-                               ("decode_lanes_kernel", "carry_kernel", "checksum_kernel"))]
-            if big:
-                raise AssertionError(f"the decode body's step holds other passes: {big}")
+        step_ops(f"bench body {key} ({card})", body, dev, expected11.get(key))
     print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
     # Bounds at the shapes of `ms`: each input read once, each output
@@ -1489,8 +1627,8 @@ def main() -> None:
         "encode_lanes": bound(N + 256 * 4 + w32 * K * 4 + K * 4),
         "decode_lanes": bound(int(bits.sum()) / 8 + (2 * TPU_MAX_CODE_LEN + 3 + 256) * 4 + N),
         "hist256_onehot": bound(N + 256 * 4, 512 * N, MMA_OPS["bf16"]),
-        "carry": bound(2 * N + 1),
-        "checksum": bound(N + 4),
+        "carry": bound(2 * N + 4),
+        "fold": bound(N + 4),
     }
     print(f"card: {card}")
     print(json.dumps({"kernels": [

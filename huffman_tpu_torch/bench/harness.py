@@ -3,9 +3,12 @@
 Counterpart: ``huffman_tpu/bench/harness.py``.  Two timing modes:
 
 * **sustained** (device codecs): repeat the body R times with a carried
-  data dependency; cost = (t(R) - t(1)) / (R - 1).  On a CUDA device one
-  step is captured in a CUDA graph and replayed, timed by CUDA events; on
-  the CPU the body runs eagerly under the host clock.
+  data dependency; cost = (t(R) - t(1)) / (R - 1).  A step is
+  ``body(acc)``: the body carries ``isnan(acc)`` into its input and folds
+  its sums into the float32 ``acc`` (`bench.fused`), so on a card a step
+  launches the codec's kernels, one carry and one fold.  On a CUDA
+  device one step is captured in a CUDA graph and replayed, timed by
+  CUDA events; on the CPU the body runs eagerly under the host clock.
 * **wall** (host codecs): classic repeated wall-clock timing.
 
 Results are plain dicts, JSON-serializable, rendered by
@@ -22,31 +25,38 @@ import torch
 from . import fused
 
 
+def sustained_step(body, device="cuda"):
+    """``(acc, step)``: a zeroed accumulator (`fused.accumulator`) on
+    ``device`` and one step of the sustained loop, ``step()`` =
+    ``body(acc)``.  The body carries the NaN test of ``acc`` into its
+    input (`fused.carry`, always 0 but dependent on the previous step, so
+    steps cannot be folded together) and folds its sums into ``acc``
+    (`fused.fold`), as one iteration of the JAX harness's ``fori_loop``
+    computes ``acc + body(isnan(acc))``."""
+    acc = fused.accumulator(device)
+    return acc, lambda: body(acc)
+
+
 def sustained_seconds(
     body, reps: int = 32, tries: int = 2, max_reps: int = 512, *, device="cuda"
 ) -> float:
-    """Seconds per run of ``body(pert)``, which returns a float32 scalar
-    tensor on ``device``; ``pert`` is a 0-d uint8 tensor that is always 0
-    but depends on the previous run's result, so runs cannot be folded
-    together.
+    """Seconds per step ``body(acc)`` of `sustained_step` on ``device``.
 
-    On a CUDA device the body runs once to warm up, then one step
-    ``acc += body(isnan(acc))`` is captured in a CUDA graph, and R
-    replays are timed between CUDA events, best of ``tries``.  The body
-    must not read anything back to the host; a failed capture raises.  On
-    the CPU the steps run eagerly under the host clock.  The rep count
-    escalates x4 while t(R) - t(1) stays within 15 ms, up to ``max_reps``,
-    as in the JAX harness.
+    On a CUDA device the step runs once to warm up, then is captured in a
+    CUDA graph, and R replays are timed between CUDA events, best of
+    ``tries``: the body must not read anything back to the host, and a
+    failed capture raises.  On the CPU the steps run eagerly under the
+    host clock.  The rep count escalates x4 while t(R) - t(1) stays
+    within 15 ms, up to ``max_reps``, as in the JAX harness.
     """
     dev = torch.device(device)
-    acc = torch.zeros((), dtype=torch.float32, device=dev)
-
-    def step():
-        acc.add_(body(torch.isnan(acc).to(torch.uint8)))
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    _, step = sustained_step(body, dev)
 
     if dev.type == "cuda":
         measure = _graph_timer(step, dev, tries)
-    elif dev.type == "cpu":
+    else:
         def measure(r):
             step()
             best = float("inf")
@@ -56,8 +66,6 @@ def sustained_seconds(
                     step()
                 best = min(best, time.perf_counter() - t0)
             return best
-    else:
-        raise ValueError(f"unsupported device {dev}")
 
     t1 = measure(1)
     tr = measure(reps)
@@ -162,14 +170,14 @@ def wall_seconds(fn, min_time: float = 0.3) -> float:
 def encode_body(codec, data):
     """``bench.py``'s compress body on a (n,) uint8 block on the codec's
     device: ``encode_device`` of the block plus the carried 0
-    (`fused.carry`), the `fused.checksum` of its bit counts and of its
-    coding table added in int32, as float32.  Nothing is copied to the
-    host."""
+    (`fused.carry`), then one `fused.fold` of its bit counts and its
+    coding table into ``acc`` (one int32 total, as ``(jnp.sum(bits) +
+    jnp.sum(t["enc_table"])).astype(jnp.float32)``).  Nothing is copied
+    to the host."""
 
-    def enc_once(pert):
-        c = codec.encode_device(fused.carry(data, pert))
-        total = fused.checksum(c.bit_counts) + fused.checksum(c.tables["enc_table"])
-        return total.to(torch.float32)
+    def enc_once(acc):
+        c = codec.encode_device(fused.carry(data, acc))
+        fused.fold(acc, c.bit_counts, c.tables["enc_table"])
 
     return enc_once
 
@@ -178,8 +186,8 @@ def decode_body(comp):
     """``bench.py``'s decompress body (``_decode_full``) on a compressed
     block: the lane decode of the first w rows of its words
     (`decode_statics`), the carried 0 added to those rows alone
-    (`fused.carry`), and the `fused.checksum` of the block's n bytes, as
-    float32.  The block's metadata is fetched here (once, cached), so the
+    (`fused.carry`), and the `fused.fold` of the block's n bytes into
+    ``acc``.  The block's metadata is fetched here (once, cached), so the
     body copies nothing to the host."""
     from ..models.torch_codec import decode_statics
     from ..ops.decode_bits import decode_lanes
@@ -190,9 +198,9 @@ def decode_body(comp):
     words = comp.words[: max(decode_statics(comp.meta(), s), 1)]
     eb, gr, sy = comp.tables["e_bound"], comp.tables["g_rank"], comp.tables["sorted_syms"]
 
-    def dec_once(pert):
-        o = decode_lanes(fused.carry(words, pert), eb, gr, sy, s)
-        return fused.checksum(o.reshape(-1)[:n]).to(torch.float32)
+    def dec_once(acc):
+        o = decode_lanes(fused.carry(words, acc), eb, gr, sy, s)
+        fused.fold(acc, o.reshape(-1)[:n])
 
     return dec_once
 

@@ -1,23 +1,30 @@
 // bench_ops: the measurement harness's two device passes around the codec.
 //
-//  carry:    out = x + pert for a contiguous u8 or int32 tensor x and a
-//            u8 pert that lies on the device (the carried 0 of a
-//            sustained body); u8 wraps mod 256.
-//  checksum: the sum of a contiguous u8 or int32 tensor in int32
-//            arithmetic that wraps mod 2^32, into one int32 word.
+//  carry: out = x + isnan(*acc) for a contiguous u8 or int32 tensor x
+//         and the sustained loop's float32 accumulator acc on the device
+//         (the carried 0 of a sustained body; 1 once acc is NaN); u8
+//         wraps mod 256.
+//  fold:  *acc += float32(the sum of one to four contiguous u8 or int32
+//         tensors in int32 arithmetic that wraps mod 2^32), in one launch.
 //
-// Replaces no Pallas kernel.  The JAX harness bodies (bench.py:172-190,
-// huffman_tpu/bench/harness.py:127-145, the tools' bodies) write
-// ``d + pert`` and ``jnp.sum(o.astype(jnp.int32))``, which XLA turns into
-// one vectorised pass each: the sum reads the bytes once with the
-// widening fused in.  PyTorch's eager ops do not: its u8 add runs near a
-// quarter of the card's memory rate, and its int32 sum of u8 first writes
-// a 4x wider copy.  These kernels are those fusions by hand.
+// Replaces no Pallas kernel.  One iteration of the JAX harness's loop
+// (huffman_tpu/bench/harness.py:40-42) is
+//   pert = jnp.isnan(acc).astype(jnp.uint8); acc + body(pert)
+// around bodies that write ``d + pert`` and end in
+// ``(jnp.sum(bits) + jnp.sum(t["enc_table"])).astype(jnp.float32)`` or
+// ``jnp.sum(o.astype(jnp.int32)).astype(jnp.float32)`` (bench.py:172-190,
+// the tools' bodies), which XLA turns into one vectorised pass each, the
+// NaN test, the conversions and the float add placed in those fusions.
+// PyTorch's eager ops take a launch for each of those scalar steps, its u8
+// add runs near a quarter of the card's memory rate, and its int32 sum of
+// u8 first writes a 4x wider copy.  These kernels are those fusions by
+// hand: a sustained step launches the codec's kernels, one carry and one
+// fold, and nothing else.
 //
 // Bound on the H100: device memory.  carry reads n bytes and writes n;
-// checksum reads n bytes and writes 4.
+// fold reads the bytes of its tensors and writes 4.
 //
-// Design: both stream the tensor as 16-byte vectors, one a thread per
+// Design: both stream their tensors as 16-byte vectors, one a thread per
 // step of a grid-stride loop, kUnroll steps' loads in flight at once, on
 // at most kBlocksPerSm blocks an SM.
 //  - carry: the output comes from PyTorch's allocator, 16-byte aligned;
@@ -25,20 +32,29 @@
 //    cut from the two aligned input vectors that hold its bytes by
 //    funnel shifts (the word offset m / 4 a template argument, so the
 //    eight words stay in registers; the byte shift runtime), so every
-//    load and store is a whole aligned vector.  u8 adds pert to each byte
-//    of a word with one __vadd4.  The ragged tail (under 16 bytes) goes
-//    element by element in block 0.  pert is read on the device, never on
-//    the host, so a step that carries it can be captured in a CUDA graph.
-//  - checksum: the sum does not care about order, so the input's head
+//    load and store is a whole aligned vector.  u8 adds the carried value
+//    to each byte of a word with one __vadd4.  The ragged tail (under 16
+//    bytes) goes element by element in block 0.  The NaN test reads acc
+//    on the device, never on the host, so a step can be captured in a
+//    CUDA graph.
+//  - fold: the sum does not care about order, so each tensor's head
 //    before its first 16-byte boundary and its tail are summed element by
 //    element in block 0, and the aligned body as vectors: u8 by __dp4a
 //    against 0x01010101 (four bytes into the sum in one instruction),
-//    int32 by adds.  Each thread's sum goes through a warp shuffle and
-//    the block's warps in shared memory, and each block adds its sum into
-//    the result with one atomicAdd.  The C entry zeroes the result word
-//    first with cudaMemsetAsync: no scratch, no ticket, nothing allocated
-//    outside PyTorch's allocator, and both the memset and the launch can
-//    be captured in a CUDA graph.  Unsigned arithmetic throughout: it
+//    int32 by adds.  The tensors' descriptors travel in the kernel's
+//    parameters.  Each thread's sum goes through a warp shuffle and the
+//    block's warps in shared memory; each block then adds 2^48 + its
+//    sum to one 64-bit scratch word with one atomicAdd: the low 48 bits
+//    gather the sums (under 2^11 blocks of 32-bit sums never carry out of
+//    them) and the high 16 count the blocks done.  The block whose add
+//    finds gridDim.x - 1 blocks done is the last: the value it read plus
+//    its own is every block's total, with no second read and no fence.
+//    It zeroes the word and adds __int2float_rn(the total's low 32 bits)
+//    to *acc (round to nearest, as XLA's convert; one int32 total then one
+//    conversion, as ``(jnp.sum(a) + jnp.sum(b)).astype(jnp.float32)``).
+//    So no memset runs, graph replays start from a zeroed word, and the
+//    scratch comes from PyTorch's allocator (bytes 8-15 of the
+//    accumulator's storage).  Unsigned arithmetic throughout: the sum
 //    wraps mod 2^32, the same bits as XLA's int32 reduction.
 #include <atomic>
 #include <cstdint>
@@ -73,14 +89,15 @@ __device__ __forceinline__ uint4 add4(const uint4& v, uint32_t p) {
   return make_uint4(v.x + p, v.y + p, v.z + p, v.w + p);
 }
 
-// Vector j of dst = vector j of the n bytes at src + m, plus *pert per
-// element, for j < vecs = n / 16; then the tail bytes [16 * vecs, n).
+// Vector j of dst = vector j of the n bytes at src + m, plus isnan(*acc)
+// per element, for j < vecs = n / 16; then the tail bytes [16 * vecs, n).
 // src is 16-byte aligned; m = 4 * kQ + rbits / 8.
 template <bool kBytes, int kQ>
 __global__ void __launch_bounds__(kThreads)
     carry_kernel(const uint8_t* __restrict__ src, int rbits, long long n,
-                 const uint8_t* __restrict__ pert, uint8_t* __restrict__ dst) {
-  const uint32_t p = *pert;
+                 const float* __restrict__ acc, uint8_t* __restrict__ dst) {
+  const float a = *acc;
+  const uint32_t p = a != a ? 1u : 0u;  // the NaN test: IEEE compares, no fast math
   const long long vecs = n >> 4;
   const bool split = kQ != 0 || rbits != 0;
   const uint4* s = reinterpret_cast<const uint4*>(src);
@@ -136,17 +153,28 @@ __device__ __forceinline__ uint32_t sum_edge(const uint8_t* x, long long lo, lon
   return kBytes ? x[i] : *reinterpret_cast<const uint32_t*>(x + i);
 }
 
-// *out += the sum of the n bytes at x, as u8 or int32 elements, mod 2^32;
-// the aligned body starts head bytes in (head < 16).
+constexpr int kMaxParts = 4;
+
+// One tensor of a fold: n bytes at x as elem-byte elements, whose aligned
+// body starts head bytes in (head < 16).
+struct Part {
+  const uint8_t* x;
+  long long n;
+  int head;
+  int elem;
+};
+
+struct Parts {
+  Part p[kMaxParts];
+  int count;
+};
+
+// acc plus this thread's share of the sum of one tensor, mod 2^32.
 template <bool kBytes>
-__global__ void __launch_bounds__(kThreads)
-    checksum_kernel(const uint8_t* __restrict__ x, long long n, int head,
-                    unsigned* __restrict__ out) {
-  __shared__ uint32_t warp_sums[kThreads / 32];
-  const long long vecs = (n - head) >> 4;
-  const uint4* body = reinterpret_cast<const uint4*>(x + head);
+__device__ __forceinline__ uint32_t sum_part(const Part& q, uint32_t acc) {
+  const long long vecs = (q.n - q.head) >> 4;
+  const uint4* body = reinterpret_cast<const uint4*>(q.x + q.head);
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  uint32_t acc = 0;
   for (long long j0 = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; j0 < vecs;
        j0 += stride * kUnroll) {
     uint4 v[kUnroll];
@@ -160,20 +188,46 @@ __global__ void __launch_bounds__(kThreads)
       if (j0 + u * stride < vecs) acc = sum16<kBytes>(v[u], acc);
   }
   if (blockIdx.x == 0) {
-    acc += sum_edge<kBytes>(x, 0, head);
-    acc += sum_edge<kBytes>(x, head + (vecs << 4), n);
+    acc += sum_edge<kBytes>(q.x, 0, q.head);
+    acc += sum_edge<kBytes>(q.x, q.head + (vecs << 4), q.n);
+  }
+  return acc;
+}
+
+// The scratch word: blocks done in the high bits, their sums below.
+constexpr int kDoneShift = 48;
+constexpr unsigned long long kSumMask = (1ull << kDoneShift) - 1;
+constexpr int kMaxBlocks = 1 << 11;  // 2^11 sums under 2^32 stay under 2^43
+
+// *acc += float32(the sum of the parts' elements mod 2^32, as int32).
+// *scratch is 0 on entry and on exit.
+__global__ void __launch_bounds__(kThreads)
+    fold_kernel(const Parts parts, float* __restrict__ acc,
+                unsigned long long* __restrict__ scratch) {
+  __shared__ uint32_t warp_sums[kThreads / 32];
+  uint32_t sum = 0;
+#pragma unroll
+  for (int i = 0; i < kMaxParts; ++i) {
+    if (i < parts.count) {
+      sum = parts.p[i].elem == 1 ? sum_part<true>(parts.p[i], sum)
+                                 : sum_part<false>(parts.p[i], sum);
+    }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, off);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = acc;
+  if (lane == 0) warp_sums[warp] = sum;
   __syncthreads();
-  if (warp == 0) {
-    acc = lane < kThreads / 32 ? warp_sums[lane] : 0;
+  if (warp != 0) return;
+  sum = lane < kThreads / 32 ? warp_sums[lane] : 0;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, off);
-    if (lane == 0) atomicAdd(out, acc);
-  }
+  for (int off = 16; off > 0; off >>= 1) sum += __shfl_down_sync(0xffffffffu, sum, off);
+  if (lane != 0) return;
+  const unsigned long long before = atomicAdd(scratch, (1ull << kDoneShift) + sum);
+  if ((before >> kDoneShift) != gridDim.x - 1) return;
+  const auto total = static_cast<uint32_t>((before & kSumMask) + sum);
+  *scratch = 0;
+  *acc = __fadd_rn(*acc, __int2float_rn(static_cast<int>(total)));
 }
 
 // The current device's SM count, read once a device (0 where unknown).
@@ -206,23 +260,23 @@ cudaError_t grid_for(long long vecs, int* blocks) {
 
 template <bool kBytes>
 void carry_dispatch(int q, int grid, cudaStream_t s, const uint8_t* src, int rbits, long long n,
-                    const uint8_t* pert, uint8_t* dst) {
+                    const float* acc, uint8_t* dst) {
   switch (q) {
-    case 0: carry_kernel<kBytes, 0><<<grid, kThreads, 0, s>>>(src, rbits, n, pert, dst); break;
-    case 1: carry_kernel<kBytes, 1><<<grid, kThreads, 0, s>>>(src, rbits, n, pert, dst); break;
-    case 2: carry_kernel<kBytes, 2><<<grid, kThreads, 0, s>>>(src, rbits, n, pert, dst); break;
-    default: carry_kernel<kBytes, 3><<<grid, kThreads, 0, s>>>(src, rbits, n, pert, dst); break;
+    case 0: carry_kernel<kBytes, 0><<<grid, kThreads, 0, s>>>(src, rbits, n, acc, dst); break;
+    case 1: carry_kernel<kBytes, 1><<<grid, kThreads, 0, s>>>(src, rbits, n, acc, dst); break;
+    case 2: carry_kernel<kBytes, 2><<<grid, kThreads, 0, s>>>(src, rbits, n, acc, dst); break;
+    default: carry_kernel<kBytes, 3><<<grid, kThreads, 0, s>>>(src, rbits, n, acc, dst); break;
   }
 }
 
 }  // namespace
 
-// out = x + *pert over nbytes bytes of elem_bytes-byte elements (1: u8,
-// wrapping mod 256; 4: int32, wrapping mod 2^32).  x may lie at any
-// element-aligned address; out must be 16-byte aligned; pert is one u8
-// on the device.  Returns the CUDA error code of the launch (0 on
+// out = x + isnan(*acc) over nbytes bytes of elem_bytes-byte elements
+// (1: u8, wrapping mod 256; 4: int32, wrapping mod 2^32).  x may lie at
+// any element-aligned address; out must be 16-byte aligned; acc is one
+// float32 on the device.  Returns the CUDA error code of the launch (0 on
 // success).
-extern "C" int carry_launch(const void* x, long long nbytes, int elem_bytes, const void* pert,
+extern "C" int carry_launch(const void* x, long long nbytes, int elem_bytes, const void* acc,
                             void* out, void* stream) {
   const uintptr_t a = reinterpret_cast<uintptr_t>(x);
   if ((elem_bytes != 1 && elem_bytes != 4) || nbytes % elem_bytes != 0 ||
@@ -235,39 +289,49 @@ extern "C" int carry_launch(const void* x, long long nbytes, int elem_bytes, con
   const int m = static_cast<int>(a & 15);
   const uint8_t* src = static_cast<const uint8_t*>(x) - m;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const uint8_t*>(pert);
+  const auto* pa = static_cast<const float*>(acc);
   auto* dst = static_cast<uint8_t*>(out);
   if (elem_bytes == 1) {
-    carry_dispatch<true>(m >> 2, grid, s, src, 8 * (m & 3), nbytes, p, dst);
+    carry_dispatch<true>(m >> 2, grid, s, src, 8 * (m & 3), nbytes, pa, dst);
   } else {
-    carry_dispatch<false>(m >> 2, grid, s, src, 0, nbytes, p, dst);
+    carry_dispatch<false>(m >> 2, grid, s, src, 0, nbytes, pa, dst);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// *out = the sum of nbytes bytes at x as elem_bytes-byte elements (1: u8,
-// 4: int32), in int32 arithmetic that wraps mod 2^32.  x may lie at any
-// element-aligned address.  Returns the CUDA error code of the memset and
-// launch (0 on success).
-extern "C" int checksum_launch(const void* x, long long nbytes, int elem_bytes, void* out,
-                               void* stream) {
-  const uintptr_t a = reinterpret_cast<uintptr_t>(x);
-  if ((elem_bytes != 1 && elem_bytes != 4) || nbytes % elem_bytes != 0 || a % elem_bytes != 0) {
+// *acc += float32(the sum of count tensors, tensor i nbytes[i] bytes at
+// xs[i] as elem_bytes[i]-byte elements (1: u8, 4: int32), in int32
+// arithmetic that wraps mod 2^32, rounded to nearest).  1 <= count <= 4;
+// each xs[i] may lie at any element-aligned address.  scratch is one
+// 8-byte-aligned 64-bit word on the device, 0 on entry; the kernel leaves
+// it 0.  Returns the CUDA error code of the launch (0 on success).
+extern "C" int fold_launch(const void* const* xs, const long long* nbytes,
+                           const int* elem_bytes, int count, void* acc, void* scratch,
+                           void* stream) {
+  if (count < 1 || count > kMaxParts || reinterpret_cast<uintptr_t>(acc) % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(scratch) % 8 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long to16 = static_cast<long long>((16 - (a & 15)) & 15);
-  const int head = static_cast<int>(nbytes < to16 ? nbytes : to16);
-  int grid = 0;
-  cudaError_t e = grid_for((nbytes - head) >> 4, &grid);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (e == cudaSuccess) e = cudaMemsetAsync(out, 0, sizeof(unsigned), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const auto* px = static_cast<const uint8_t*>(x);
-  auto* po = static_cast<unsigned*>(out);
-  if (elem_bytes == 1) {
-    checksum_kernel<true><<<grid, kThreads, 0, s>>>(px, nbytes, head, po);
-  } else {
-    checksum_kernel<false><<<grid, kThreads, 0, s>>>(px, nbytes, head, po);
+  Parts parts = {};
+  parts.count = count;
+  long long vecs = 0;
+  for (int i = 0; i < count; ++i) {
+    const uintptr_t a = reinterpret_cast<uintptr_t>(xs[i]);
+    const long long n = nbytes[i];
+    const int elem = elem_bytes[i];
+    if ((elem != 1 && elem != 4) || n < 0 || n % elem != 0 || a % elem != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const long long to16 = static_cast<long long>((16 - (a & 15)) & 15);
+    const int head = static_cast<int>(n < to16 ? n : to16);
+    parts.p[i] = {static_cast<const uint8_t*>(xs[i]), n, head, elem};
+    vecs += (n - head) >> 4;
   }
+  int grid = 0;
+  cudaError_t e = grid_for(vecs, &grid);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (grid > kMaxBlocks) return static_cast<int>(cudaErrorInvalidConfiguration);
+  fold_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      parts, static_cast<float*>(acc), static_cast<unsigned long long*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }

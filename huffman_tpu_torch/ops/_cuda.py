@@ -7,7 +7,7 @@ through ctypes: every pointer and the stream are ``c_void_p``, the
 stream is PyTorch's current one, and each C entry returns
 ``cudaGetLastError()`` after its launch.  The codec's kernels have a
 source each, named for it; the measurement harness's two (``carry`` and
-``checksum``) share ``csrc/bench_ops.cu``.
+``fold``) share ``csrc/bench_ops.cu``.
 
 ``LAUNCHES`` counts the launches of each kernel, so a caller can show
 that a path really went through the kernels.  It and the library handles
@@ -27,10 +27,10 @@ from .._build import BUILD_DIR, build_library
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 KERNELS = (
     "hist256", "hist256_batch", "table_build", "encode_lanes", "decode_lanes",
-    "hist256_onehot", "carry", "checksum",
+    "hist256_onehot", "carry", "fold",
 )
 #: The source of each kernel that is not named for its own.
-_SOURCE_OF = {"carry": "bench_ops", "checksum": "bench_ops"}
+_SOURCE_OF = {"carry": "bench_ops", "fold": "bench_ops"}
 #: The sources, ``csrc/<source>.cu``, one library each.
 SOURCES = tuple(dict.fromkeys(_SOURCE_OF.get(name, name) for name in KERNELS))
 _FLAGS = [
@@ -46,6 +46,7 @@ _CUDA_ROOT = "/usr/local/cuda"
 
 #: ctypes argument types of each ``<name>_launch``.
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PTRS = ctypes.POINTER(_VP)
 _ARGTYPES = {
     "hist256": [_VP, _I64, _I32, _I64, _I32, _I32, _VP, _VP],
     "hist256_batch": [_VP, _I32, _I64, _VP, _VP],
@@ -54,7 +55,7 @@ _ARGTYPES = {
     "decode_lanes": [_VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP, _VP],
     "hist256_onehot": [_VP, _I64, _I32, _VP, _VP],
     "carry": [_VP, _I64, _I32, _VP, _VP, _VP],
-    "checksum": [_VP, _I64, _I32, _VP, _VP],
+    "fold": [_PTRS, ctypes.POINTER(_I64), ctypes.POINTER(_I32), _I32, _VP, _VP, _VP],
 }
 #: Further C entries ``<entry>_launch`` of a kernel's library: entry ->
 #: (kernel, ctypes argument types).  A launch through one counts as a

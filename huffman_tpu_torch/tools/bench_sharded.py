@@ -54,14 +54,14 @@ def one_rank_row(per_dev_blocks: int, k: int, device, block: int = BLOCK, reps: 
     """The one-rank row: ``per_dev_blocks`` blocks through the step with
     no collective, timed by `sustained_seconds` (CUDA-graph replays on a
     card, the host clock on the CPU); the body carries its 0 with
-    `bench.fused.carry` and sums the bit counts with
-    `bench.fused.checksum` (int32), as the JAX tool's does."""
+    `bench.fused.carry` and folds the int32 sum of the bit counts into
+    the accumulator with `bench.fused.fold`, as the JAX tool's does."""
     run = _step(LocalMesh(), k, block)
     blocks = torch.from_numpy(biased_u8(per_dev_blocks * block, 0).reshape(-1, block)).to(device)
     ok = torch.equal(run(blocks)[0], blocks)
 
-    def body(pert):
-        return fused.checksum(run(fused.carry(blocks, pert))[1]).to(torch.float32)
+    def body(acc):
+        fused.fold(acc, run(fused.carry(blocks, acc))[1])
 
     t = sustained_seconds(body, reps=reps, device=device)
     return {"devices": 1, "roundtrip_GiB_s": per_dev_blocks * block / t / (1 << 30), "ok": ok}

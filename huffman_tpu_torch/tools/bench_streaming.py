@@ -17,8 +17,8 @@ Counterpart: ``tools/bench_streaming.py``.
 Every body is timed by `bench.harness.sustained_seconds`: none reads back
 to the host, so on a card each is one step captured in a CUDA graph and
 replayed; each row names its timing.  As in the JAX tool's bodies, each
-adds the carried 0 with `bench.fused.carry` and sums its results with
-`bench.fused.checksum` (int32, added in int32).
+adds the carried 0 with `bench.fused.carry` and folds the int32 sum of
+its results into the accumulator with one `bench.fused.fold`.
 
     python3 -m huffman_tpu_torch.tools.bench_streaming [--fast] [--out bench_out/streaming.json]
 """
@@ -54,14 +54,14 @@ def shared_table_row(n: int, reps: int, device) -> dict:
     w = max(decode_statics(comp.meta(), s), 1)
     eb, gr, sy = tables["e_bound"], tables["g_rank"], tables["sorted_syms"]
 
-    def enc_once(pert):
-        c = codec.encode_device(fused.carry(d, pert), tables=tables)
-        return fused.checksum(c.bit_counts).to(torch.float32)
+    def enc_once(acc):
+        c = codec.encode_device(fused.carry(d, acc), tables=tables)
+        fused.fold(acc, c.bit_counts)
 
-    def combined_once(pert):
-        c = codec.encode_device(fused.carry(d, pert), tables=tables)
+    def combined_once(acc):
+        c = codec.encode_device(fused.carry(d, acc), tables=tables)
         o = decode_lanes(c.words[:w], eb, gr, sy, s)
-        return fused.checksum(o.reshape(-1)[:n]).to(torch.float32)
+        fused.fold(acc, o.reshape(-1)[:n])
 
     t_c = sustained_seconds(enc_once, reps=reps, device=device)
     t_d = sustained_seconds(decode_body(comp), reps=reps, device=device)
@@ -86,13 +86,13 @@ def batched_row(b: int, reps: int, device) -> dict:
     out = codec.decode_batch(words, bits, tables, NB, statics=statics)
     ok = torch.equal(out.reshape(b, NB), blocks)
 
-    def enc_b(pert):
-        _, bits_, t_ = codec.encode_batch(fused.carry(blocks, pert))
-        return (fused.checksum(bits_) + fused.checksum(t_["enc_table"])).to(torch.float32)
+    def enc_b(acc):
+        _, bits_, t_ = codec.encode_batch(fused.carry(blocks, acc))
+        fused.fold(acc, bits_, t_["enc_table"])
 
-    def dec_b(pert):
-        o = codec.decode_batch(fused.carry(words, pert), bits, tables, NB, statics=statics)
-        return fused.checksum(o).to(torch.float32)
+    def dec_b(acc):
+        o = codec.decode_batch(fused.carry(words, acc), bits, tables, NB, statics=statics)
+        fused.fold(acc, o)
 
     rb = max(2, reps // max(1, b // 8))
     t_cb = sustained_seconds(enc_b, reps=rb, device=device)

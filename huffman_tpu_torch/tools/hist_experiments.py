@@ -14,13 +14,13 @@ against `histogram256`:
             port never calls it)
 
 Each row gives the sustained ms and GiB/s of the TPU tool's body, the
-checksum of ``fn(data + pert)`` (`bench.fused.carry` and
-`bench.fused.checksum`, int32), from `sustained_seconds` (CUDA-graph
-replays; ``bincount`` reads its maximum back to the host, so it cannot
-be captured and is timed by CUDA events around back-to-back calls), the
-device-busy ms of one ``fn(data)`` from the profiler (the sustained body
-also carries ``pert`` onto every byte, a full pass over the block), and
-the kernel launches of one call.
+int32 sum of ``fn(data + pert)`` folded into the accumulator
+(`bench.fused.carry` and `bench.fused.fold`), from `sustained_seconds`
+(CUDA-graph replays; ``bincount`` reads its maximum back to the host, so
+it cannot be captured and is timed by CUDA events around back-to-back
+calls), the device-busy ms of one ``fn(data)`` from the profiler (the
+sustained body also carries its 0 onto every byte, a full pass over the
+block), and the kernel launches of one call.
 
 Usage: python3 -m huffman_tpu_torch.tools.hist_experiments [n_mib]
 (default 16; n_mib * 2^20 must be a multiple of 2^19).
@@ -99,9 +99,9 @@ def race_on(data: torch.Tensor, reps: int = 64, tries: int = 3) -> list[dict]:
                 sec = _events_seconds(lambda fn=fn: fn(data), reps, tries)
             timing = "events"
         else:
-            def body(pert, fn=fn):
-                counts = fn(fused.carry(data, pert)).to(torch.int32)  # bincount's int64 on the CPU
-                return fused.checksum(counts).to(torch.float32)
+            def body(acc, fn=fn):
+                counts = fn(fused.carry(data, acc)).to(torch.int32)  # bincount's int64 on the CPU
+                fused.fold(acc, counts)
 
             sec = sustained_seconds(body, reps=reps, tries=tries, device=dev)
             timing = "graph" if dev.type == "cuda" else "host"

@@ -13,10 +13,11 @@ by `bench.harness.sustained_seconds` (CUDA-graph replays on a card):
 * ``full``: the whole ``encode_device``.
 
 Each stage's device time is its row less ``dep`` (``table`` carries the
-dependency on 256 counts only) and less its checksums: as in the JAX
-tool's bodies, each sums its results with `bench.fused.checksum` (int32;
-``kernel`` and ``full`` sum the words too, whose u32 sum JAX adds to the
-int32 ones in int32).
+dependency on 256 counts only) and less its fold: as in the JAX tool's
+bodies, each folds the int32 sum of its results into the accumulator
+with one `bench.fused.fold` (``kernel`` and ``full`` sum the words too,
+whose u32 sum JAX adds to the int32 ones in int32; ``dep`` folds the
+first carried byte).
 
     python3 -m huffman_tpu_torch.tools.probe_encode_stages [n_mib] [--out bench_out/probe_encode_stages.json]
 """
@@ -61,31 +62,27 @@ def main(argv=None) -> list[dict]:
     enc_table = build_coding_device(hist0)["enc_table"]
     print(f"n={n} k={k} s={s} w32={w32} hist_stride={hs} ({sustained_method(device)})", flush=True)
 
-    carry, checksum = fused.carry, fused.checksum
+    carry, fold = fused.carry, fused.fold
 
-    def table(pert):
-        return checksum(build_coding_device(carry(hist0, pert))["enc_table"])
+    def kernel(acc):
+        words, bits = encode_lanes(carry(data, acc), enc_table, s, k, w32)
+        fold(acc, words, bits)
 
-    def kernel(pert):
-        words, bits = encode_lanes(carry(data, pert), enc_table, s, k, w32)
-        return checksum(words) + checksum(bits)
-
-    def full(pert):
-        c = codec.encode_device(carry(block, pert))
-        return checksum(c.words) + checksum(c.bit_counts) + checksum(c.tables["enc_table"])
+    def full(acc):
+        c = codec.encode_device(carry(block, acc))
+        fold(acc, c.words, c.bit_counts, c.tables["enc_table"])
 
     stages = [
-        ("dep", lambda pert: carry(data, pert)[0]),
-        ("hist/1", lambda pert: checksum(table_hist(carry(data, pert), 1))),
-        (f"hist/{hs}", lambda pert: checksum(table_hist(carry(data, pert), hs))),
-        ("table", table),
+        ("dep", lambda acc: fold(acc, carry(data, acc)[:1])),
+        ("hist/1", lambda acc: fold(acc, table_hist(carry(data, acc), 1))),
+        (f"hist/{hs}", lambda acc: fold(acc, table_hist(carry(data, acc), hs))),
+        ("table", lambda acc: fold(acc, build_coding_device(carry(hist0, acc))["enc_table"])),
         ("kernel", kernel),
         ("full", full),
     ]
     rows = []
     for name, body in stages:
-        sec = sustained_seconds(lambda pert, body=body: body(pert).to(torch.float32),
-                                reps=args.reps, tries=3, device=device)
+        sec = sustained_seconds(body, reps=args.reps, tries=3, device=device)
         rows.append({"stage": name, "ms": sec * 1e3, "GiB_s": n / sec / GIB,
                      "timing": sustained_method(device)})
         print(f"{name:8s} {sec * 1e3:10.6f} ms {n / sec / GIB:10.3f} GiB/s", flush=True)

@@ -19,7 +19,7 @@ from huffman_tpu.bench import harness as jharness
 from huffman_tpu.bench import table as jtable
 from huffman_tpu.models.tpu_codec import TpuCodec
 from huffman_tpu_torch import TorchCodec, native
-from huffman_tpu_torch.bench import harness, render_markdown, run_suite, workloads
+from huffman_tpu_torch.bench import fused, harness, render_markdown, run_suite, workloads
 from huffman_tpu_torch.tools import hist_experiments, run_benchmarks
 
 torch.set_num_threads(2)
@@ -106,18 +106,26 @@ def test_bench_torch_codec_on_cpu():
 
 
 def test_sustained_seconds_on_cpu():
-    x = torch.arange(1 << 16, dtype=torch.float32)
+    x = torch.arange(1 << 16, dtype=torch.int32)
+    accs = []
 
-    def body(pert):
-        return (x + pert).sum()
+    def body(acc):
+        accs.append(acc)
+        fused.fold(acc, fused.carry(x, acc))
 
     sec = harness.sustained_seconds(body, reps=4, tries=2, device="cpu")
     assert math.isfinite(sec) and sec > 0
+    # Every step saw the one accumulator and added x's sum to it in float32.
+    assert len(accs) >= 1 + 2 * 1 + 1 + 2 * 4 and all(a is accs[0] for a in accs)
+    want = np.float32(0)
+    for _ in accs:
+        want = np.float32(want + np.float32(int(x.sum())))
+    assert np.float32(accs[0]) == want
 
 
 def test_sustained_seconds_refuses_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
-        harness.sustained_seconds(lambda pert: pert.sum(), device="meta")
+        harness.sustained_seconds(lambda acc: None, device="meta")
 
 
 @pytest.mark.parametrize("k", [None, 8192, 32768])

@@ -155,9 +155,12 @@ CUDA_CALLS = {
         _FakeCudaTensor((1 << 19,), torch.uint8), "base"
     ),
     "carry": lambda: fused.carry(
-        _FakeCudaTensor((64,), torch.uint8), _FakeCudaTensor((), torch.uint8)
+        _FakeCudaTensor((64,), torch.uint8), _FakeCudaTensor((), torch.float32)
     ),
-    "checksum": lambda: fused.checksum(_FakeCudaTensor((18, 64), torch.int32)),
+    "fold": lambda: fused.fold(
+        _FakeCudaTensor((), torch.float32), _FakeCudaTensor((18, 64), torch.int32),
+        _FakeCudaTensor((64,), torch.uint8),
+    ),
 }
 
 

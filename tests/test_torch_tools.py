@@ -92,6 +92,30 @@ def test_probe_batched(tmp_path):
     assert res["artifact_check"]["blocks"] == 2 and res["artifact_check"]["reps2_GiB_s"] > 0
 
 
+def test_probe_batched_skip_artifact_and_max_reps(tmp_path, monkeypatch):
+    """``--skip-artifact`` drops the check at ``--artifact-b`` and
+    ``--max-reps`` reaches every stage's `sustained_seconds`, as the JAX
+    tool's flags do."""
+    caps = []
+    real = probe_batched.sustained_seconds
+
+    def spy(body, *args, **kwargs):
+        caps.append(kwargs["max_reps"])
+        return real(body, *args, **kwargs)
+
+    monkeypatch.setattr(probe_batched, "sustained_seconds", spy)
+    out = tmp_path / "batched.json"
+    res = probe_batched.main(["--bs", "1", "--reps", "2", "--skip-artifact", "--max-reps", "8",
+                              *CPU, "--out", str(out)])
+    assert _load(out) == json.loads(json.dumps(res))
+    assert res["artifact_check"] == {}
+    assert caps == [8] * 5  # dep, hist_b, table, body, full at B = 1; no artifact rows
+    caps.clear()
+    probe_batched.main(["--bs", "1", "--reps", "2", "--artifact-b", "1", "--max-reps", "16",
+                        *CPU, "--out", str(out)])
+    assert caps == [16] * 7  # the five stages, then full at reps 2 and --reps
+
+
 TOOLS = {
     "bench_streaming": (bench_streaming.main, ["--fast", "--block-mib", "1", "--bs", "1"]),
     "bench_small": (bench_small.main, ["--sizes", "4096", "--reps", "2"]),
