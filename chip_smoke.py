@@ -67,7 +67,11 @@ Phases (any failure exits non-zero; no phase failure is caught):
    calls); and the batched device path at B = 1, 16 and 160 (the same,
    decode with statics precomputed).  Also hist256's full count of the
    16 MiB block, and hist256_onehot in each MMA type on it, each beside
-   its plain version and ``torch.bincount`` (the library yardstick).
+   its plain version and ``torch.bincount`` (the library yardstick);
+   hist256_batch's kernel at B = 160 x 100 KiB and at the sharded path's
+   B = 64 x 1 MiB beside one ``torch.bincount`` of the bytes offset by
+   256 times their row (the same (B, 256) counts; the plain version is
+   that call cast to int32).
    carry and fold at 16 MiB (and at the decode body's words, the bit
    counts and table) beside their plain versions and the PyTorch ops
    they replace (the NaN test, its cast and the add; the int32 sums,
@@ -165,16 +169,31 @@ Phases (any failure exits non-zero; no phase failure is caught):
    its memset, table_build, encode_lanes, carry and fold, and its decode
    step decode_lanes, carry and fold, each once: no PyTorch op and no
    other memset.
+12. The fuzz battery of ``tests/test_fuzz.py`` (``bench.kernel_cases``:
+   its 36 tpu-profile cases, n < 50,000, K in {8, 16, 64, 128, 256},
+   four byte styles, and its 12 hist_stride cases, strides 2, 3, 8 and
+   17), with the counters zeroed just before: each case's blob from
+   ``TorchCodec(k, device="cuda")`` must equal the CPU path's and decode
+   on the card to the input, synchronised after each case; the encode
+   kernel each shape takes (tiled or direct) is checked against the
+   trace once a kernel.  Then 120 single-byte flips of the 50,000-byte
+   biased block's blob at K = 256: the card gives the CPU path's bytes
+   or both raise ValueError; its raw size times 4, times 64 and with
+   0x40 in its high byte must raise ValueError on both with no launch.
+   hist256, table_build, encode_lanes and decode_lanes must have
+   launched.  Prints the cases, the K values, the encode kernels by
+   shape and the phase's seconds.
 
 The line before the last is a JSON object of the kernels (launches
-counted in phases 4, 4b, 7, 8, 9 and 10; ms is the kernel's device time at the
+counted in phases 4, 4b, 7, 8, 9, 10 and 12; ms is the kernel's device time at the
 single-block shapes, hist256_batch's at B = 160, hist256_onehot's in
 bf16 (the TPU's base variant) at 16 MiB, carry's and fold's on the
 16 MiB u8 block with the L2 evicted; plain_ms the plain version's call; bound_ms the least
 time of the same work on an H100 at its published peaks, from the bytes
 moved or the tensor operations, and for table_build, which moves 2 KiB,
 from its serial chain of dependent steps; library_ms ``torch.bincount``'s
-call where it computes the same function, and for carry ``x + pert``,
+call where it computes the same function (for hist256_batch of the
+row-offset bytes at B = 160), and for carry ``x + pert``,
 for fold ``x.sum(dtype=torch.int32)``); the last is ``{"ok": true, "device": {...}}``.  Imports
 neither jax nor huffman_tpu.
 """
@@ -256,6 +275,11 @@ OUT_DIR = "chiprun_out"  # the tools' JSON
 # The benchmark entry (phase 11): its supervisor's budget and the child's
 # limit; a budget under BENCH_DEADLINE_S leaves no room for a retry.
 BENCH_SECONDS = 300
+# The fuzz battery (phase 12): mutated blobs of the 50,000-byte block, and
+# encode_lanes.cu's tile (kTileLanes lanes, kTileBytes of words): lanes of
+# more than kTileBytes / (4 * kTileLanes) words take the direct kernel.
+FUZZ_FLIPS = 120
+ENCODE_TILE_LANES, ENCODE_TILE_BYTES = 128, 64 << 10
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): device memory
 # bytes/s and tensor-core operations/s by input type.
@@ -915,6 +939,19 @@ def main() -> None:
         "hist256": cuda_ms(lambda: torch.bincount(sample, minlength=256), 20),
         "hist256_onehot": cuda_ms(lambda: torch.bincount(data, minlength=256), 20),
     }
+    # hist256_batch beside the one PyTorch call that gives the same (B, 256)
+    # counts, a bincount of each byte offset by 256 times its row (the
+    # plain version is that call, cast to int32), at B = 160 x 100 KiB and
+    # at the sharded path's B = 64 x 1 MiB.
+    raw64_np = workloads.biased_u8(SN, 0)
+    k2_blocks = {"160 x 100 KiB": blocks,
+                 "64 x 1 MiB": torch.from_numpy(raw64_np.reshape(-1, SB)).to(dev)}
+    k2_library_ms = {}
+    for key, x in k2_blocks.items():
+        rows = torch.arange(x.shape[0], device=dev)[:, None] * 256
+        k2_library_ms[key] = cuda_ms(lambda x=x, rows=rows: torch.bincount(
+            (x.long() + rows).reshape(-1), minlength=256 * x.shape[0]), 20)
+    library_ms["hist256_batch"] = k2_library_ms["160 x 100 KiB"]
     # carry and fold on the 16 MiB block beside their plain versions and
     # the one PyTorch call that computes the pass: the add of a carried 0
     # computed beforehand, the int32 sum.
@@ -957,6 +994,12 @@ def main() -> None:
     for name, (kern, _, _) in batched.items():
         print(f"time {name} B={BATCH}: kernel {kernel_ms(kern, name):.6f} ms device, "
               f"call {bcall_ms[name]:.6f} ms, plain {bplain_ms[name]:.6f} ms")
+    for key, x in k2_blocks.items():
+        print(f"time hist256_batch B={key} ({card}): kernel "
+              f"{kernel_ms(lambda x=x: histogram256_batch(x), 'hist256_batch'):.6f} ms device, "
+              f"library call (bincount of the row-offset bytes, events) "
+              f"{k2_library_ms[key]:.6f} ms")
+    del k2_blocks
     print(f"time decode_lanes escape-heavy 16 MiB: kernel "
           f"{kernel_ms(lambda: decode_lanes(ewords, *et, s), 'decode_lanes'):.6f} ms device")
     eenc = etab["enc_table"]
@@ -1317,7 +1360,6 @@ def main() -> None:
     t9 = time.perf_counter()
     s9 = SB // SK
     w9 = (s9 * TPU_MAX_CODE_LEN + 31) // 32 + 1
-    raw64_np = workloads.biased_u8(SN, 0)
     for nb9, k9 in ((SN // SB, SK), (SN_RANKS // SB, SK // 2)):
         x9 = torch.from_numpy(raw64_np[: nb9 * s9 * k9].reshape(nb9, -1)).to(dev)
         h9 = histogram256_batch(x9)
@@ -1613,6 +1655,86 @@ def main() -> None:
         step_ops(f"bench body {key} ({card})", body, dev, expected11.get(key))
     print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
 
+    # 12. The fuzz battery of tests/test_fuzz.py on the card, held against
+    # the CPU path (tests/test_torch_fuzz.py holds that to the JAX
+    # package); the counters cover this phase only.
+    t12 = time.perf_counter()
+    _cuda.reset_launches()
+    fuzz = [dict(c, stride=None) for c in kernel_cases.tpu_battery()]
+    fuzz += kernel_cases.hist_stride_battery()
+    encode_paths = {}  # encode kernel -> the (K, S) shapes that took it
+    for c in fuzz:
+        raw, k12 = c["raw"], c["k"]
+        label = f"fuzz case n={c['n']} K={k12} stride={c['stride']} {c['style']}"
+        gcodec = TorchCodec(k12, hist_stride=c["stride"], device=dev)
+        gblob = gcodec.compress(raw)
+        torch.cuda.synchronize()
+        if gblob != TorchCodec(k12, hist_stride=c["stride"], device="cpu").compress(raw):
+            raise AssertionError(f"{label}: the card's blob differs from the CPU path's")
+        if gcodec.decompress(gblob) != raw:
+            raise AssertionError(f"{label}: the card does not decode its blob to the input")
+        torch.cuda.synchronize()
+        if raw:
+            s12 = -(-len(raw) // k12)
+            w12 = (s12 * TPU_MAX_CODE_LEN + 31) // 32 + 1
+            path = ("encode_lanes_direct_kernel" if w12 * ENCODE_TILE_LANES * 4 > ENCODE_TILE_BYTES
+                    else "encode_lanes_kernel")
+            if path not in encode_paths:  # the trace must name the kernel the rule picks
+                x12 = torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(dev)
+                for _ in range(3):  # a window may lose launches (as `kernel_ms` says)
+                    names = [op for op, _, _ in device_ops(lambda: gcodec.encode_device(x12), 10)]
+                    if any(f"{path}(" in op for op in names):
+                        break
+                else:
+                    raise AssertionError(f"{label}: expected {path}, the trace has {names}")
+            encode_paths.setdefault(path, []).append((k12, s12))
+    # Mutated blobs of the 50,000-byte biased block at K = 256: the card
+    # gives the CPU's bytes, or both raise ValueError.
+    cpu12, gpu12 = TorchCodec(device="cpu"), TorchCodec(device=dev)
+    mraw = kernel_cases.mutation_block()
+    mblob = gpu12.compress(mraw)
+    if mblob != cpu12.compress(mraw):
+        raise AssertionError("the mutation block's card blob differs from the CPU path's")
+
+    def outcome(codec12, blob12):
+        try:
+            return codec12.decompress(blob12)
+        except ValueError as e:
+            return ValueError, str(e)
+
+    agree = {"same bytes": 0, "ValueError on both": 0}
+    for at, bad in kernel_cases.byte_flips(mblob, FUZZ_FLIPS):
+        got, want = outcome(gpu12, bad), outcome(cpu12, bad)
+        torch.cuda.synchronize()
+        if got != want:
+            raise AssertionError(f"flip at byte {at}: the card gives {str(got)[:200]}, "
+                                 f"the CPU {str(want)[:200]}")
+        agree["same bytes" if isinstance(got, bytes) else "ValueError on both"] += 1
+    before12 = dict(_cuda.LAUNCHES)
+    for name, bad in kernel_cases.inflated_raw_sizes(mblob).items():
+        for codec12 in (gpu12, cpu12):
+            got = outcome(codec12, bad)
+            if not (isinstance(got, tuple) and "raw size" in got[1]):
+                raise AssertionError(f"raw size {name} was not refused: {str(got)[:200]}")
+    torch.cuda.synchronize()
+    if dict(_cuda.LAUNCHES) != before12:
+        raise AssertionError("an inflated raw size launched a kernel before it was refused")
+    launches_f = dict(_cuda.LAUNCHES)
+    missing = [k for k in SINGLE_PATH if launches_f[k] == 0]
+    if missing:
+        raise AssertionError(f"the fuzz battery never launched {missing}")
+    print(f"fuzz battery ({card}): {len(fuzz)} cases (36 of tests/test_fuzz.py's tpu-profile "
+          f"battery, 12 of its hist_stride battery), K {sorted({c['k'] for c in fuzz})}, "
+          f"n {min(c['n'] for c in fuzz)}-{max(c['n'] for c in fuzz)}: every card blob "
+          f"equals the CPU path's and decodes to the input; encode kernels: "
+          + "; ".join(f"{p_} {len(v)} cases, K {sorted({kk for kk, _ in v})}, S "
+                      f"{min(ss for _, ss in v)}-{max(ss for _, ss in v)}"
+                      for p_, v in encode_paths.items())
+          + f"; {FUZZ_FLIPS} mutated blobs of the 50,000-byte block agree with the CPU "
+          f"({json.dumps(agree)}); raw sizes x4, x64 and high byte 0x40 raise ValueError "
+          f"before any launch; launches {json.dumps(launches_f)}; phase 12: "
+          f"{time.perf_counter() - t12:.1f} s", flush=True)
+
     # Bounds at the shapes of `ms`: each input read once, each output
     # written once; the decode reads only the payload bits of its lanes.
     # table_build's tree is serial on one thread: for this run's n symbols,
@@ -1638,7 +1760,8 @@ def main() -> None:
             "source": src,
             "replaces": replaces,
             "launches": (launches[name] + launches_b[name] + launches_m[name]
-                         + launches_r[name] + launches_s[name] + launches_c[name]),
+                         + launches_r[name] + launches_s[name] + launches_c[name]
+                         + launches_f[name]),
             "max_abs_err": err[name],
             "ms": ms[name],
             "plain_ms": plain_ms[name],

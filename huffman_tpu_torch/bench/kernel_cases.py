@@ -1,5 +1,7 @@
 """Inputs that hold the table, decode, encode and histogram kernels to
-their plain versions where they are hardest to get right.
+their plain versions where they are hardest to get right, and the fuzz
+battery of ``tests/test_fuzz.py`` (random sizes, lane counts and byte
+styles; mutated and truncated blobs).
 
 ``chip_smoke.py`` runs them through the CUDA kernels on the card; the
 CPU tests run them through the plain versions and the JAX package.
@@ -7,6 +9,8 @@ Every generator is numpy only and made from a seed.
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
@@ -172,4 +176,101 @@ def hist_blocks(n: int, seed: int = 0) -> dict[str, np.ndarray]:
     return {
         "constant": np.full(n, 0xA5, np.uint8),
         "uniform": np.random.default_rng(seed).integers(0, N_SYMBOLS, n, dtype=np.uint8),
+    }
+
+
+# ---------- the fuzz battery (tests/test_fuzz.py) ----------
+
+FUZZ_STYLES = ("uniform", "biased", "runs", "few")
+
+
+def fuzz_bytes(rng: np.random.Generator, style: str, n: int) -> np.ndarray:
+    """Up to n uint8 of one byte style, drawn from ``rng``: uniform, the
+    biased distribution, runs of 1-49 bytes over 8 values (may fall
+    short of n), or three values."""
+    if style == "uniform":
+        return rng.integers(0, 256, size=n, dtype=np.uint8)
+    if style == "biased":
+        p = 0.8 ** np.arange(256) * 0.2
+        p /= p.sum()
+        return rng.choice(256, size=n, p=p).astype(np.uint8)
+    if style == "runs":
+        reps = rng.integers(1, 50, size=max(n // 10, 1))
+        vals = rng.integers(0, 8, size=reps.size)
+        return np.repeat(vals, reps).astype(np.uint8)[:n]
+    if style == "few":
+        return rng.choice([7, 200, 201], size=n).astype(np.uint8)
+    raise ValueError(style)
+
+
+def _battery(seed, count, n_range, lanes, strides=None) -> list[dict]:
+    """tests/test_fuzz.py's loop: {"n", "k", "style", "raw"} cases (and
+    "stride" with ``strides``), the styles in turn; ``raw`` may be
+    shorter than n (runs)."""
+    rng = np.random.default_rng(seed)
+    cases = []
+    for i in range(count):
+        n = int(rng.integers(*n_range))
+        style = FUZZ_STYLES[i % 4]
+        raw = fuzz_bytes(rng, style, n).tobytes()[:n]
+        case = {"n": n, "k": int(rng.choice(lanes)), "style": style, "raw": raw}
+        if strides:
+            case["stride"] = int(rng.choice(strides))
+        cases.append(case)
+    return cases
+
+
+def tpu_battery() -> list[dict]:
+    """The tpu-profile battery: 36 cases, n in [0, 50,000), k in
+    {8, 16, 64, 128, 256}."""
+    return _battery(123, 36, (0, 50_000), [8, 16, 64, 128, 256])
+
+
+def ref_battery() -> list[dict]:
+    """The ref-profile battery: 20 cases, n in [1, 20,000), k in
+    {1, 2, 4, 8, 32}."""
+    return _battery(321, 20, (1, 20_000), [1, 2, 4, 8, 32])
+
+
+def hist_stride_battery() -> list[dict]:
+    """Sampled-histogram tables: 12 cases, n in [1, 40,000), k in
+    {8, 64, 256}, stride in {2, 3, 8, 17}."""
+    return _battery(99, 12, (1, 40_000), [8, 64, 256], [2, 3, 8, 17])
+
+
+#: The mutated blobs' block: 50,000 biased bytes at the default K = 256.
+MUTATION_BYTES = 50_000
+
+
+def mutation_block(seed: int = 14) -> bytes:
+    return biased_u8(MUTATION_BYTES, seed).tobytes()
+
+
+def byte_flips(blob: bytes, count: int, seed: int = 0) -> list[tuple[int, bytes]]:
+    """``count`` (offset, blob) pairs, each with one byte XORed by 1-255:
+    a quarter at offsets below 64 (the header), the rest anywhere."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        at = int(rng.integers(0, min(64, len(blob)) if i % 4 == 0 else len(blob)))
+        bad = bytearray(blob)
+        bad[at] ^= int(rng.integers(1, 256))
+        out.append((at, bytes(bad)))
+    return out
+
+
+def with_raw_size(blob: bytes, raw_size: int) -> bytes:
+    """An HTP3 blob with its raw-size field (bytes 4-7) replaced."""
+    return blob[:4] + struct.pack("<I", raw_size) + blob[8:]
+
+
+def inflated_raw_sizes(blob: bytes) -> dict[str, bytes]:
+    """The blob with its raw size times 4, times 64, and with 0x40 set in
+    its high byte: sizes whose lanes would need more symbols than their
+    bits hold."""
+    n = struct.unpack_from("<I", blob, 4)[0]
+    return {
+        "x4": with_raw_size(blob, 4 * n),
+        "x64": with_raw_size(blob, 64 * n),
+        "high byte 0x40": with_raw_size(blob, n | 0x40 << 24),
     }

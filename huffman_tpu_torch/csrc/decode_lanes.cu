@@ -11,7 +11,8 @@
 // Bound on the H100: the latency of each lane's serial chain, one symbol
 // after another, with a shared-memory lookup on it.  Device traffic is
 // only the payload bits and s*K output bytes (~7 us for the 16 MiB block
-// at 3.35 TB/s).  Measured on the 16 MiB block (PERF.md, by
+// at the H100 SXM's published 3.35 TB/s).  Measured on the 16 MiB block
+// on an NVIDIA H100 80GB HBM3 at a 700 W power limit (PERF.md, by
 // tools/kernel_ab.py): the same loop with a fixed code length and no
 // lookup takes ~11 us; the lookup's bank conflicts (32 lanes, random
 // entries) and its escape branch add ~5-6 us each.  A symbol that hits

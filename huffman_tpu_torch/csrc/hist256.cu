@@ -7,9 +7,10 @@
 // shared-memory atomics, so this is the direct form.
 //
 // Bound on the H100: the 1-in-32 sample of a 16 MiB block is 512 KiB, a
-// fraction of a microsecond of device-memory traffic, so the launch, one
-// load's latency and the adds into the result bound it; a full count of
-// 16 MiB is bound by device memory and the shared-memory atomics.  Skewed
+// fraction of a microsecond of device-memory traffic at the H100 SXM's
+// published 3.35 TB/s, so the launch, one load's latency and the adds
+// into the result bound it; a full count of 16 MiB is bound by device
+// memory and the shared-memory atomics.  Skewed
 // data (the biased corpus puts a fifth of its bytes on one value) makes
 // many lanes of a warp hit one bin at once.
 //

@@ -9,7 +9,9 @@
 // a row is counted exactly once and nothing is padded.
 //
 // Bound on the H100: at 160 rows of 100 KiB the kernel reads 16 MB, about
-// 5 us of device-memory traffic, so the launch, the memset and the
+// 5 us of device-memory traffic at the H100 SXM's published 3.35 TB/s
+// (0.0064 ms a launch on an NVIDIA H100 80GB HBM3 at a 700 W power
+// limit, PERF.md), so the launch, the memset and the
 // shared-memory atomics bound it.  Skewed data (the biased corpus puts a
 // fifth of its bytes on one value) makes many threads of a warp hit one
 // bin at once.

@@ -12,13 +12,15 @@
 // m16n8k32, int32 sums), bf16 (base, bf16cmp, wide, m16n8k16, f32 sums) and
 // tf32 (f32cmp, m16n8k8, f32 sums).
 //
-// Bound on the H100: 16 MiB is 5.0 us of device-memory traffic; the
-// product is 512 operations a byte, 4.3 us at the s8 dense peak, 8.7 us at
-// bf16's and 17.4 us at tf32's.  What bounds the kernel is the one-hot
-// build, integer work outside the tensor cores: in the mma fragments the 8
-// threads of a t-group (g = lane/4, same t) hold the same bytes, and each
-// needs their one-hot entries for its own rows g and g+8 and columns g and
-// g+8: 32 one-hot bytes to make for every input byte, whatever the design.
+// Bound on the H100: 16 MiB is 5.0 us of device-memory traffic at the
+// H100 SXM's published 3.35 TB/s; the product is 512 operations a byte,
+// 4.3 us at its published s8 dense peak (1979 TOPS), 8.7 us at bf16's
+// (989 TFLOPS) and 17.4 us at tf32's (495 TFLOPS).  What bounds the
+// kernel is the one-hot build, integer work outside the tensor cores: in
+// the mma fragments the 8 threads of a t-group (g = lane/4, same t) hold
+// the same bytes, and each needs their one-hot entries for its own rows g
+// and g+8 and columns g and g+8: 32 one-hot bytes to make for every input
+// byte, whatever the design.
 // Byte-wise compares took about 20 integer instructions per 4 bytes per
 // thread, nibble extraction included, 8 times over.
 //
@@ -48,10 +50,11 @@
 // before the first build: s8 about 44, bf16 about 80, tf32 about 120;
 // counted: s8 44.25 (17 prmt, 10 lop3, 8 shfl, 4 imma), bf16 77.5 (49
 // prmt, 8 hmma), tf32 117.5 (81 prmt, 16 hmma), against the byte-wise
-// compares' 105.5, 157.75 and 229.75.  On an H100 SXM at 700 W the
-// 16 MiB count takes 0.027 / 0.046 / 0.069 ms (0.059 / 0.073 / 0.103
-// before), about 27 / 46 / 69 SM clocks a 64-byte warp step: the
-// lookups, XORs and shuffles still bound it, 19-25 % of the bounds below.
+// compares' 105.5, 157.75 and 229.75.  On an NVIDIA H100 80GB HBM3 at a
+// 700 W power limit the 16 MiB count takes 0.027 / 0.046 / 0.069 ms
+// (0.059 / 0.073 / 0.103 before), about 27 / 46 / 69 SM clocks a
+// 64-byte warp step: the lookups, XORs and shuffles still bound it,
+// 19-25 % of the bounds below.
 //
 // The 16 x 16 sums stay in registers (two n = 8 tiles) and are flushed into
 // the block's int32 shared histogram every 64 iterations (far below

@@ -13,13 +13,17 @@ versions run.
 
 The serialized layout is the one documented at the top of
 ``huffman_tpu/models/tpu_codec.py`` (compact, huff-counts and legacy
-payloads).  Two deliberate differences from that writer, neither of
-which changes any blob it can read back:
+payloads).  Three deliberate differences from that writer and parser,
+none of which changes any blob it writes or reads back:
 
 * the entropy-coded counts blob is built only when ``counts`` is
   ``"auto"`` or ``"huff"``;
 * a bit-count delta wider than 24 bits, which the parser rejects, raises
-  ``ValueError`` in `serialize` instead of producing an unreadable blob.
+  ``ValueError`` in `serialize` instead of producing an unreadable blob;
+* `deserialize` raises ``ValueError`` for a raw size that needs more
+  symbols a lane than the longest lane's bits hold at the shortest code
+  length; there the JAX package's decode raises ``TypeError`` (or, near
+  the bound, returns bytes from the zeros past the lanes' words).
 """
 
 from __future__ import annotations
@@ -599,9 +603,19 @@ class TorchCodec:
             pos += cw * k
 
         s = -(-raw_size // k) if raw_size else 0
-        if int(bits.max(initial=0)) > max(s, 1) * MAX_CODE_LEN:
+        max_bits = int(bits.max(initial=0))
+        if max_bits > max(s, 1) * MAX_CODE_LEN:
             raise ValueError("per-lane bit count exceeds slice capacity")
-        wmax = max(int((bits.max(initial=0) + 31) // 32), 1)
+        # Every lane holds s codes of at least l_min bits (a partial last
+        # row is padded), so the longest lane has at least s * l_min bits.
+        # A raw size past that would decode rows of the zeros past the words.
+        l_min = int(np.flatnonzero(len_count[1:])[0]) + 1
+        if s * l_min > max_bits:
+            raise ValueError(
+                f"raw size {raw_size} needs {s} symbols a lane, more than "
+                f"{max_bits} bits of {l_min}-bit or longer codes hold"
+            )
+        wmax = max((max_bits + 31) // 32, 1)
         if compact:
             if int(bits.sum()) > (len(buf) - pos) * 8:
                 raise ValueError("payload shorter than bit counts imply")
