@@ -1,0 +1,7 @@
+"""api.decode_call_ms: mean host milliseconds of a decompress call, from the
+call to its return, before the synchronize (the untraced requests)."""
+
+
+def read(run):
+    c = run.halves["decompress"].call_s
+    return sum(c) / len(c) * 1e3 if c else None

@@ -1,0 +1,7 @@
+"""compress_GiB_s: input bytes of every compress request that completed in
+the first half of the window, over that half's wall time (host clock)."""
+
+
+def read(run):
+    h = run.halves["compress"]
+    return h.bytes / h.wall_s / 2**30 if h.requests else None
