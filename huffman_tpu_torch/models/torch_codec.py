@@ -24,6 +24,12 @@ none of which changes any blob it writes or reads back:
   symbols a lane than the longest lane's bits hold at the shortest code
   length; there the JAX package's decode raises ``TypeError`` (or, near
   the bound, returns bytes from the zeros past the lanes' words).
+
+While the recorder of host spans (`tracing`) is on, each device-API
+method, the batched statics copy, `TorchCodec.upload`, `serialize` (its
+wait for the block's copies, the lane-byte transpose, the count encoding
+and bit pack) and `deserialize` (the count decoding and bit unpack, the
+upload of words and tables) is a span.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import struct
 import numpy as np
 import torch
 
-from .. import coding, container, native
+from .. import coding, container, native, tracing
 from ..constants import NUM_SYMBOLS
 from ..constants import TPU_MAX_CODE_LEN as MAX_CODE_LEN
 from ..ops.decode_bits import decode_lanes, decode_lanes_batch, decode_tables_bitserial
@@ -272,9 +278,10 @@ class TorchCodec:
         """``raw`` as a (n,) uint8 tensor on the codec's device, copied
         through a pinned host buffer: on a card the copy is queued and the
         call returns without waiting for the stream."""
-        return self._uploads.upload(
-            len(raw), lambda buf: np.copyto(buf, np.frombuffer(raw, dtype=np.uint8))
-        )
+        with tracing.span("device_api.upload"):
+            return self._uploads.upload(
+                len(raw), lambda buf: np.copyto(buf, np.frombuffer(raw, dtype=np.uint8))
+            )
 
     def build_tables(self, sample: torch.Tensor, full_alphabet: bool = True) -> dict:
         """A shared coding from sample bytes, for `encode_device(tables=)`.
@@ -288,44 +295,46 @@ class TorchCodec:
         """Compress a (n,) uint8 tensor on its device; the result stays there."""
         if data.dtype != torch.uint8 or data.dim() != 1:
             raise ValueError("expected a (n,) uint8 tensor")
-        n = int(data.shape[0])
-        k = self._lanes(n)
-        dev = data.device
-        if n == 0:
+        with tracing.span("device_api.encode_device"):
+            n = int(data.shape[0])
+            k = self._lanes(n)
+            dev = data.device
+            if n == 0:
+                return TorchCompressed(
+                    words=torch.zeros((1, k), dtype=torch.int32, device=dev),
+                    bit_counts=torch.zeros(k, dtype=torch.int32, device=dev),
+                    raw_size=0,
+                    k=k,
+                    tables=_empty_tables(dev),
+                )
+            s = -(-n // k)
+            w32 = (s * MAX_CODE_LEN + 31) // 32 + 1
+            # A zero-width pad still copies the block: pad only a partial row.
+            padded = data if s * k == n else torch.nn.functional.pad(data, (0, s * k - n))
+            if tables is None:
+                tables = build_coding_device(table_hist(padded, self._hist_stride(n)))
+            words, bit_counts = encode_lanes(padded, tables["enc_table"], s, k, w32)
             return TorchCompressed(
-                words=torch.zeros((1, k), dtype=torch.int32, device=dev),
-                bit_counts=torch.zeros(k, dtype=torch.int32, device=dev),
-                raw_size=0,
-                k=k,
-                tables=_empty_tables(dev),
+                words=words, bit_counts=bit_counts, raw_size=n, k=k, tables=tables
             )
-        s = -(-n // k)
-        w32 = (s * MAX_CODE_LEN + 31) // 32 + 1
-        # A zero-width pad still copies the block: pad only a partial row.
-        padded = data if s * k == n else torch.nn.functional.pad(data, (0, s * k - n))
-        if tables is None:
-            tables = build_coding_device(table_hist(padded, self._hist_stride(n)))
-        words, bit_counts = encode_lanes(padded, tables["enc_table"], s, k, w32)
-        return TorchCompressed(
-            words=words, bit_counts=bit_counts, raw_size=n, k=k, tables=tables
-        )
 
     def decode_device(self, comp: TorchCompressed) -> torch.Tensor:
         """Decompress to a (raw_size,) uint8 tensor on the block's device.
         The first call fetches the block's metadata (one copy, cached)."""
-        n, k = comp.raw_size, comp.k
-        dev = comp.words.device
-        if n == 0:
-            return torch.zeros(0, dtype=torch.uint8, device=dev)
-        m = comp.meta()
-        if m["num_syms"] <= 1:
-            sym = int(m["sorted_syms"][0]) if m["num_syms"] else 0
-            return torch.full((n,), sym, dtype=torch.uint8, device=dev)
-        t = comp.tables
-        out = decode_lanes(
-            comp.words, t["e_bound"], t["g_rank"], t["sorted_syms"], -(-n // k)
-        )
-        return out.reshape(-1)[:n]
+        with tracing.span("device_api.decode_device"):
+            n, k = comp.raw_size, comp.k
+            dev = comp.words.device
+            if n == 0:
+                return torch.zeros(0, dtype=torch.uint8, device=dev)
+            m = comp.meta()
+            if m["num_syms"] <= 1:
+                sym = int(m["sorted_syms"][0]) if m["num_syms"] else 0
+                return torch.full((n,), sym, dtype=torch.uint8, device=dev)
+            t = comp.tables
+            out = decode_lanes(
+                comp.words, t["e_bound"], t["g_rank"], t["sorted_syms"], -(-n // k)
+            )
+            return out.reshape(-1)[:n]
 
     # ---------- batched device API ----------
 
@@ -342,15 +351,16 @@ class TorchCodec:
         """
         if blocks.dtype != torch.uint8 or blocks.dim() != 2 or 0 in blocks.shape:
             raise ValueError("expected a non-empty (B, n_block) uint8 tensor")
-        nb = blocks.shape[1]
-        k = self._lanes(nb)
-        s = -(-nb // k)
-        if s * k != nb:
-            raise ValueError(f"block size {nb} is not a multiple of the lane count {k}")
-        w32 = (s * MAX_CODE_LEN + 31) // 32 + 1
-        tables = build_coding_device_batch(histogram256_batch(blocks))
-        words, bit_counts = encode_lanes_batch(blocks, tables["enc_table"], s, k, w32)
-        return words, bit_counts, tables
+        with tracing.span("device_api.encode_batch"):
+            nb = blocks.shape[1]
+            k = self._lanes(nb)
+            s = -(-nb // k)
+            if s * k != nb:
+                raise ValueError(f"block size {nb} is not a multiple of the lane count {k}")
+            w32 = (s * MAX_CODE_LEN + 31) // 32 + 1
+            tables = build_coding_device_batch(histogram256_batch(blocks))
+            words, bit_counts = encode_lanes_batch(blocks, tables["enc_table"], s, k, w32)
+            return words, bit_counts, tables
 
     def batch_decode_statics(
         self, words: torch.Tensor, bit_counts: torch.Tensor, tables: dict, n_block: int
@@ -363,14 +373,15 @@ class TorchCodec:
         and pass to repeated `decode_batch` calls.  Of the three, only w
         changes what `decode_batch` reads."""
         bcount, n_words, _ = words.shape
-        packed = torch.cat(
-            [
-                bit_counts.max().view(1).to(torch.int32),
-                tables["len_count"].reshape(-1).to(torch.int32),
-            ]
-        ).cpu().numpy()
-        nz = packed[1:].reshape(bcount, MAX_CODE_LEN + 1)[:, 1:] > 0
-        l_min = min(int(np.argmax(row)) + 1 if row.any() else 1 for row in nz)
+        with tracing.span("device_api.statics"):
+            packed = torch.cat(
+                [
+                    bit_counts.max().view(1).to(torch.int32),
+                    tables["len_count"].reshape(-1).to(torch.int32),
+                ]
+            ).cpu().numpy()
+            nz = packed[1:].reshape(bcount, MAX_CODE_LEN + 1)[:, 1:] > 0
+            l_min = min(int(np.argmax(row)) + 1 if row.any() else 1 for row in nz)
         group = max(g for g in (1, 2, 3, 4, 6, 8) if g <= max(1, l_min))
         w = (int(packed[0]) + 31) // 32
         w = max(min(-(-w // 4) * 4, n_words), 1)
@@ -387,14 +398,15 @@ class TorchCodec:
         """Inverse of `encode_batch`: (B, S, K) uint8 with S = n_block / K;
         block b is ``out[b].reshape(-1)`` (the strided lane map).
         ``statics`` from `batch_decode_statics` saves its host copy."""
-        k = words.shape[2]
-        if statics is None:
-            statics = self.batch_decode_statics(words, bit_counts, tables, n_block)
-        _, w, _ = statics
-        return decode_lanes_batch(
-            words, tables["e_bound"], tables["g_rank"], tables["sorted_syms"],
-            -(-n_block // k), w,
-        )
+        with tracing.span("device_api.decode_batch"):
+            k = words.shape[2]
+            if statics is None:
+                statics = self.batch_decode_statics(words, bit_counts, tables, n_block)
+            _, w, _ = statics
+            return decode_lanes_batch(
+                words, tables["e_bound"], tables["g_rank"], tables["sorted_syms"],
+                -(-n_block // k), w,
+            )
 
     # ---------- bytes API ----------
 
@@ -426,7 +438,12 @@ class TorchCodec:
         smaller of the two), "flat" or "huff"."""
         if counts not in ("auto", "flat", "huff"):
             raise ValueError(f"unknown counts encoding {counts!r}")
-        bits, words = comp.host_arrays()  # waits for this block's copies alone
+        with tracing.span("serialize"):
+            return self._serialize(comp, compact, counts)
+
+    def _serialize(self, comp: TorchCompressed, compact: bool, counts: str) -> bytes:
+        with tracing.span("serialize.wait"):
+            bits, words = comp.host_arrays()  # waits for this block's copies alone
         bits = bits.astype(np.int64)
         m = comp.meta()
         k = comp.k
@@ -442,60 +459,66 @@ class TorchCodec:
             # Zero-length codes: bit counts and payload are implicit.
             return bytes(out)
 
-        words = words.view(np.uint32)  # (W, K) lane words
-        w = words.shape[0]
-        lane_bytes = (
-            np.ascontiguousarray(words.T).astype(">u4").view(np.uint8).reshape(k, 4 * w)
-        )
-        if not compact:
-            while len(out) % 2:
-                out.append(0)
-            out += bits.astype("<u4" if wide else "<u2").tobytes()
-            nbytes = (bits + 7) // 8
-            mask = np.arange(4 * w, dtype=np.int64)[None, :] < nbytes[:, None]
-            out += lane_bytes[mask].tobytes()
-            return bytes(out)
+        with tracing.span("serialize.transpose"):
+            words = words.view(np.uint32)  # (W, K) lane words
+            w = words.shape[0]
+            lane_bytes = (
+                np.ascontiguousarray(words.T).astype(">u4").view(np.uint8).reshape(k, 4 * w)
+            )
+        with tracing.span("serialize.pack"):
+            if not compact:
+                while len(out) % 2:
+                    out.append(0)
+                out += bits.astype("<u4" if wide else "<u2").tobytes()
+                nbytes = (bits + 7) // 8
+                mask = np.arange(4 * w, dtype=np.int64)[None, :] < nbytes[:, None]
+                out += lane_bytes[mask].tobytes()
+                return bytes(out)
 
-        # Bit counts as base + fixed-width deltas, or (flag bit 26) the
-        # delta bytes min(delta, 255) as a ref-profile blob plus raw
-        # width-bit escapes, whichever is smaller under "auto".
-        base = int(bits.min())
-        deltas = bits - base
-        width = int(deltas.max(initial=0)).bit_length()
-        if width > _MAX_DELTA_WIDTH:
-            raise ValueError(
-                f"bit-count delta width {width} exceeds {_MAX_DELTA_WIDTH}: "
-                "use fewer lanes or smaller blocks"
-            )
-        use_huff = False
-        if counts != "flat":
-            cblob = native.compress(
-                np.minimum(deltas, 255).astype(np.uint8).tobytes(), _HUFF_COUNTS_STREAMS
-            )
-            esc = deltas[deltas >= 255]
-            esc_bytes = b""
-            if len(esc) and width:
-                ebits = ((esc[:, None] >> np.arange(width - 1, -1, -1)) & 1).astype(np.uint8)
-                esc_bytes = np.packbits(ebits.reshape(-1)).tobytes()
-            use_huff = counts == "huff" or 9 + len(cblob) + len(esc_bytes) < 5 + (
-                k * width + 7
-            ) // 8
-        if use_huff:
-            struct.pack_into("<I", out, 12, len_mask | flags | FLAG_HUFF_COUNTS)
-            out += struct.pack("<IBI", base, width, len(cblob))
-            out += cblob
-            out += esc_bytes
-        else:
-            out += struct.pack("<IB", base, width)
-            if width:
-                dbits = ((deltas[:, None] >> np.arange(width - 1, -1, -1)) & 1).astype(np.uint8)
-                out += np.packbits(dbits.reshape(-1)).tobytes()
-        out += native.pack_lane_bits(lane_bytes, bits)
+            # Bit counts as base + fixed-width deltas, or (flag bit 26) the
+            # delta bytes min(delta, 255) as a ref-profile blob plus raw
+            # width-bit escapes, whichever is smaller under "auto".
+            base = int(bits.min())
+            deltas = bits - base
+            width = int(deltas.max(initial=0)).bit_length()
+            if width > _MAX_DELTA_WIDTH:
+                raise ValueError(
+                    f"bit-count delta width {width} exceeds {_MAX_DELTA_WIDTH}: "
+                    "use fewer lanes or smaller blocks"
+                )
+            use_huff = False
+            if counts != "flat":
+                cblob = native.compress(
+                    np.minimum(deltas, 255).astype(np.uint8).tobytes(), _HUFF_COUNTS_STREAMS
+                )
+                esc = deltas[deltas >= 255]
+                esc_bytes = b""
+                if len(esc) and width:
+                    ebits = ((esc[:, None] >> np.arange(width - 1, -1, -1)) & 1).astype(np.uint8)
+                    esc_bytes = np.packbits(ebits.reshape(-1)).tobytes()
+                use_huff = counts == "huff" or 9 + len(cblob) + len(esc_bytes) < 5 + (
+                    k * width + 7
+                ) // 8
+            if use_huff:
+                struct.pack_into("<I", out, 12, len_mask | flags | FLAG_HUFF_COUNTS)
+                out += struct.pack("<IBI", base, width, len(cblob))
+                out += cblob
+                out += esc_bytes
+            else:
+                out += struct.pack("<IB", base, width)
+                if width:
+                    dbits = ((deltas[:, None] >> np.arange(width - 1, -1, -1)) & 1).astype(np.uint8)
+                    out += np.packbits(dbits.reshape(-1)).tobytes()
+            out += native.pack_lane_bits(lane_bytes, bits)
         return bytes(out)
 
     def deserialize(self, blob: bytes) -> TorchCompressed:
         """Parse an HTP3 blob onto the codec's device.  Every structural
         field is checked; corrupt input raises ValueError."""
+        with tracing.span("deserialize"):
+            return self._deserialize(blob)
+
+    def _deserialize(self, blob: bytes) -> TorchCompressed:
         buf = memoryview(blob)
         if len(buf) < 16:
             raise ValueError("blob too short for header")
@@ -541,94 +564,95 @@ class TorchCodec:
                 raw_size, k, len_count, sorted_syms, np.zeros(k, np.int64),
                 np.zeros((k, 4), np.uint8),
             )
-        if huff_counts:
-            if pos + 9 > len(buf):
-                raise ValueError("truncated huff-count header")
-            base, width, clen = struct.unpack_from("<IBI", buf, pos)
-            pos += 9
-            if width > _MAX_DELTA_WIDTH:
-                raise ValueError(f"implausible bit-count delta width {width}")
-            if clen > len(buf) - pos:
-                raise ValueError("truncated huff-count blob")
-            d8 = np.frombuffer(
-                native.decompress(bytes(buf[pos : pos + clen]), _HUFF_COUNTS_STREAMS, k),
-                dtype=np.uint8,
-            )
-            pos += clen
-            if len(d8) != k:
-                raise ValueError(f"huff-count blob decodes to {len(d8)} deltas, expected {k}")
-            deltas = d8.astype(np.int64)
-            n_esc = int((d8 == 255).sum())
-            if n_esc:
-                if width < 8:
-                    raise ValueError("escaped deltas need width >= 8")
-                nb = (n_esc * width + 7) // 8
-                if pos + nb > len(buf):
-                    raise ValueError("truncated escape deltas")
-                e = np.unpackbits(
-                    np.frombuffer(buf[pos : pos + nb], dtype=np.uint8), count=n_esc * width
+        with tracing.span("deserialize.unpack"):
+            if huff_counts:
+                if pos + 9 > len(buf):
+                    raise ValueError("truncated huff-count header")
+                base, width, clen = struct.unpack_from("<IBI", buf, pos)
+                pos += 9
+                if width > _MAX_DELTA_WIDTH:
+                    raise ValueError(f"implausible bit-count delta width {width}")
+                if clen > len(buf) - pos:
+                    raise ValueError("truncated huff-count blob")
+                d8 = np.frombuffer(
+                    native.decompress(bytes(buf[pos : pos + clen]), _HUFF_COUNTS_STREAMS, k),
+                    dtype=np.uint8,
                 )
-                deltas[d8 == 255] = (
-                    e.reshape(n_esc, width).astype(np.int64) << np.arange(width - 1, -1, -1)
-                ).sum(axis=1)
-                pos += nb
-            bits = base + deltas
-        elif compact:
-            if pos + 5 > len(buf):
-                raise ValueError("truncated compact bit counts")
-            base, width = struct.unpack_from("<IB", buf, pos)
-            pos += 5
-            if width > _MAX_DELTA_WIDTH:
-                raise ValueError(f"implausible bit-count delta width {width}")
-            bits = np.full(k, base, dtype=np.int64)
-            if width:
-                nb = (k * width + 7) // 8
-                if pos + nb > len(buf):
-                    raise ValueError("truncated bit-count deltas")
-                d = np.unpackbits(
-                    np.frombuffer(buf[pos : pos + nb], dtype=np.uint8), count=k * width
-                )
-                bits += (
-                    d.reshape(k, width).astype(np.int64) << np.arange(width - 1, -1, -1)
-                ).sum(axis=1)
-                pos += nb
-        else:
-            pos = (pos + 1) & ~1
-            cw = 4 if wide else 2
-            if pos + cw * k > len(buf):
-                raise ValueError("truncated bit counts")
-            bits = np.frombuffer(
-                buf[pos : pos + cw * k], dtype="<u4" if wide else "<u2"
-            ).astype(np.int64)
-            pos += cw * k
+                pos += clen
+                if len(d8) != k:
+                    raise ValueError(f"huff-count blob decodes to {len(d8)} deltas, expected {k}")
+                deltas = d8.astype(np.int64)
+                n_esc = int((d8 == 255).sum())
+                if n_esc:
+                    if width < 8:
+                        raise ValueError("escaped deltas need width >= 8")
+                    nb = (n_esc * width + 7) // 8
+                    if pos + nb > len(buf):
+                        raise ValueError("truncated escape deltas")
+                    e = np.unpackbits(
+                        np.frombuffer(buf[pos : pos + nb], dtype=np.uint8), count=n_esc * width
+                    )
+                    deltas[d8 == 255] = (
+                        e.reshape(n_esc, width).astype(np.int64) << np.arange(width - 1, -1, -1)
+                    ).sum(axis=1)
+                    pos += nb
+                bits = base + deltas
+            elif compact:
+                if pos + 5 > len(buf):
+                    raise ValueError("truncated compact bit counts")
+                base, width = struct.unpack_from("<IB", buf, pos)
+                pos += 5
+                if width > _MAX_DELTA_WIDTH:
+                    raise ValueError(f"implausible bit-count delta width {width}")
+                bits = np.full(k, base, dtype=np.int64)
+                if width:
+                    nb = (k * width + 7) // 8
+                    if pos + nb > len(buf):
+                        raise ValueError("truncated bit-count deltas")
+                    d = np.unpackbits(
+                        np.frombuffer(buf[pos : pos + nb], dtype=np.uint8), count=k * width
+                    )
+                    bits += (
+                        d.reshape(k, width).astype(np.int64) << np.arange(width - 1, -1, -1)
+                    ).sum(axis=1)
+                    pos += nb
+            else:
+                pos = (pos + 1) & ~1
+                cw = 4 if wide else 2
+                if pos + cw * k > len(buf):
+                    raise ValueError("truncated bit counts")
+                bits = np.frombuffer(
+                    buf[pos : pos + cw * k], dtype="<u4" if wide else "<u2"
+                ).astype(np.int64)
+                pos += cw * k
 
-        s = -(-raw_size // k) if raw_size else 0
-        max_bits = int(bits.max(initial=0))
-        if max_bits > max(s, 1) * MAX_CODE_LEN:
-            raise ValueError("per-lane bit count exceeds slice capacity")
-        # Every lane holds s codes of at least l_min bits (a partial last
-        # row is padded), so the longest lane has at least s * l_min bits.
-        # A raw size past that would decode rows of the zeros past the words.
-        l_min = int(np.flatnonzero(len_count[1:])[0]) + 1
-        if s * l_min > max_bits:
-            raise ValueError(
-                f"raw size {raw_size} needs {s} symbols a lane, more than "
-                f"{max_bits} bits of {l_min}-bit or longer codes hold"
-            )
-        wmax = max((max_bits + 31) // 32, 1)
-        if compact:
-            if int(bits.sum()) > (len(buf) - pos) * 8:
-                raise ValueError("payload shorter than bit counts imply")
-            stream = np.frombuffer(buf[pos:], dtype=np.uint8)
-            lane_bytes = native.unpack_lane_bits(stream, bits, 4 * wmax)
-        else:
-            flat = np.frombuffer(buf[pos:], dtype=np.uint8)
-            nbytes = (bits + 7) // 8
-            if int(nbytes.sum()) > len(flat):
-                raise ValueError("payload shorter than bit counts imply")
-            lane_bytes = np.zeros((k, 4 * wmax), dtype=np.uint8)
-            mask = np.arange(4 * wmax, dtype=np.int64)[None, :] < nbytes[:, None]
-            lane_bytes[mask] = flat[: int(nbytes.sum())]
+            s = -(-raw_size // k) if raw_size else 0
+            max_bits = int(bits.max(initial=0))
+            if max_bits > max(s, 1) * MAX_CODE_LEN:
+                raise ValueError("per-lane bit count exceeds slice capacity")
+            # Every lane holds s codes of at least l_min bits (a partial last
+            # row is padded), so the longest lane has at least s * l_min bits.
+            # A raw size past that would decode rows of the zeros past the words.
+            l_min = int(np.flatnonzero(len_count[1:])[0]) + 1
+            if s * l_min > max_bits:
+                raise ValueError(
+                    f"raw size {raw_size} needs {s} symbols a lane, more than "
+                    f"{max_bits} bits of {l_min}-bit or longer codes hold"
+                )
+            wmax = max((max_bits + 31) // 32, 1)
+            if compact:
+                if int(bits.sum()) > (len(buf) - pos) * 8:
+                    raise ValueError("payload shorter than bit counts imply")
+                stream = np.frombuffer(buf[pos:], dtype=np.uint8)
+                lane_bytes = native.unpack_lane_bits(stream, bits, 4 * wmax)
+            else:
+                flat = np.frombuffer(buf[pos:], dtype=np.uint8)
+                nbytes = (bits + 7) // 8
+                if int(nbytes.sum()) > len(flat):
+                    raise ValueError("payload shorter than bit counts imply")
+                lane_bytes = np.zeros((k, 4 * wmax), dtype=np.uint8)
+                mask = np.arange(4 * wmax, dtype=np.int64)[None, :] < nbytes[:, None]
+                lane_bytes[mask] = flat[: int(nbytes.sum())]
         return self._finish_deserialize(
             raw_size, k, len_count, sorted_syms, bits, lane_bytes
         )
@@ -636,42 +660,43 @@ class TorchCodec:
     def _finish_deserialize(
         self, raw_size, k, len_count, sorted_syms, bits, lane_bytes
     ) -> TorchCompressed:
-        num_syms = len(sorted_syms)
-        wmax = lane_bytes.shape[1] // 4
-        t = decode_tables_bitserial(len_count, sorted_syms)
-        # One upload of int32s: the (W, K) words, byte-swapped and
-        # transposed straight into the staging buffer, then the bit counts
-        # and the tables.
-        parts = [bits, t["e_bound"], t["g_rank"], t["syms"], len_count, [num_syms]]
-        offs = np.cumsum([0, wmax * k] + [len(p) for p in parts])
+        with tracing.span("deserialize.upload"):
+            num_syms = len(sorted_syms)
+            wmax = lane_bytes.shape[1] // 4
+            t = decode_tables_bitserial(len_count, sorted_syms)
+            # One upload of int32s: the (W, K) words, byte-swapped and
+            # transposed straight into the staging buffer, then the bit counts
+            # and the tables.
+            parts = [bits, t["e_bound"], t["g_rank"], t["syms"], len_count, [num_syms]]
+            offs = np.cumsum([0, wmax * k] + [len(p) for p in parts])
 
-        def fill(buf):
-            i32 = buf.view(np.int32)
-            np.copyto(i32[: wmax * k].view(np.uint32).reshape(wmax, k), lane_bytes.view(">u4").T)
-            for p, lo, hi in zip(parts, offs[1:], offs[2:]):
-                i32[lo:hi] = p
+            def fill(buf):
+                i32 = buf.view(np.int32)
+                np.copyto(i32[: wmax * k].view(np.uint32).reshape(wmax, k), lane_bytes.view(">u4").T)
+                for p, lo, hi in zip(parts, offs[1:], offs[2:]):
+                    i32[lo:hi] = p
 
-        flat = self._uploads.upload(int(offs[-1]) * 4, fill).view(torch.int32)
-        piece = [flat[lo:hi] for lo, hi in zip(offs[:-1], offs[1:])]
-        tables = {
-            "e_bound": piece[2],
-            "g_rank": piece[3],
-            "sorted_syms": piece[4],
-            "len_count": piece[5],
-            "num_syms": piece[6][0],
-        }
-        meta = {
-            "max_bits": int(bits.max()) if k else 0,
-            "l_min": t["l_min"],
-            "num_syms": num_syms,
-            "len_count": len_count.astype(np.int32),
-            "sorted_syms": t["syms"],
-        }
-        return TorchCompressed(
-            words=piece[0].view(wmax, k),
-            bit_counts=piece[1],
-            raw_size=raw_size,
-            k=k,
-            tables=tables,
-            _meta=meta,
-        )
+            flat = self._uploads.upload(int(offs[-1]) * 4, fill).view(torch.int32)
+            piece = [flat[lo:hi] for lo, hi in zip(offs[:-1], offs[1:])]
+            tables = {
+                "e_bound": piece[2],
+                "g_rank": piece[3],
+                "sorted_syms": piece[4],
+                "len_count": piece[5],
+                "num_syms": piece[6][0],
+            }
+            meta = {
+                "max_bits": int(bits.max()) if k else 0,
+                "l_min": t["l_min"],
+                "num_syms": num_syms,
+                "len_count": len_count.astype(np.int32),
+                "sorted_syms": t["syms"],
+            }
+            return TorchCompressed(
+                words=piece[0].view(wmax, k),
+                bit_counts=piece[1],
+                raw_size=raw_size,
+                k=k,
+                tables=tables,
+                _meta=meta,
+            )

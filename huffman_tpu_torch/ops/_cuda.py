@@ -22,6 +22,7 @@ import shutil
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
+from .. import tracing
 from .._build import BUILD_DIR, build_library
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
@@ -123,9 +124,15 @@ def reset_launches() -> None:
 
 def launch(entry: str, *args) -> None:
     """Call ``<entry>_launch(*args)`` and count a launch of its kernel;
-    raises on a CUDA error."""
+    raises on a CUDA error.  The C call is the span ``launch.<kernel>``
+    while the recorder (`tracing`) is on."""
     name = _MORE_ENTRIES[entry][0] if entry in _MORE_ENTRIES else entry
-    rc = load()[entry](*args)
+    fn = load()[entry]
+    if tracing.ON:
+        with tracing.span("launch." + name):
+            rc = fn(*args)
+    else:
+        rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
     LAUNCHES[name] += 1

@@ -20,12 +20,18 @@ the caching allocator's reuse of device memory safe without
 On the CPU the same code runs on plain tensors: a tensor already on the
 host is its own host copy, copies into it are synchronous, and there is
 no event.
+
+The host's time blocked on a copy's event, in `HostCopy.wait` and in
+`PinnedRing.upload`'s wait for its buffer, is the span ``staging.wait``
+(`tracing`).
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from . import tracing
 
 
 def _event_after(device: torch.device) -> torch.cuda.Event:
@@ -55,7 +61,8 @@ class HostCopy:
         """The host arrays, once this copy (and only what was queued
         before it) is done."""
         if self._event is not None:
-            self._event.synchronize()
+            with tracing.span("staging.wait"):
+                self._event.synchronize()
             self._event = None
         return [h.numpy() for h in self._host]
 
@@ -80,7 +87,8 @@ class PinnedRing:
         i = self._turn
         self._turn = (i + 1) % len(self._bufs)
         if self._events[i] is not None:
-            self._events[i].synchronize()
+            with tracing.span("staging.wait"):
+                self._events[i].synchronize()
             self._events[i] = None
         buf = self._bufs[i]
         if buf is None or buf.numel() < nbytes:

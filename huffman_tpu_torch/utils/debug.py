@@ -9,7 +9,8 @@
 * ``assert_vec_eq``: an elementwise comparison with the JAX version's
   message, for tests.
 * ``profile_trace(logdir)``: a ``torch.profiler`` window over the
-  enclosed block (CPU and CUDA activities), exported as a Chrome trace.
+  enclosed block (CPU and CUDA activities), exported as a Chrome trace,
+  with the program's host spans (`tracing`) on inside it.
 
 The JAX module's ``interpret_kernels`` (Pallas interpret mode) has no
 counterpart: a switch that ran the kernels' plain versions on the card
@@ -26,6 +27,8 @@ import sys
 
 import numpy as np
 import torch
+
+from .. import tracing
 
 VLOG = int(os.environ.get("HUFFMAN_TPU_VLOG", "0"))
 
@@ -68,7 +71,9 @@ def assert_vec_eq(a, b, msg: str = "") -> None:
 def profile_trace(logdir: str, device="cuda"):
     """Trace the enclosed block with ``torch.profiler`` (CPU activity, and
     CUDA activity when ``device`` is a card) and export it as the Chrome
-    trace ``<logdir>/trace.json``; yields that path."""
+    trace ``<logdir>/trace.json``; yields that path.  The recorder of
+    host spans (`tracing`) is on inside the block, so the trace holds
+    them as ``htp.<span>`` ranges, and is switched back after."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -76,8 +81,14 @@ def profile_trace(logdir: str, device="cuda"):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
     path = os.path.join(logdir, "trace.json")
-    with profile(activities=activities) as prof:
-        yield path
-        if ProfilerActivity.CUDA in activities:
-            torch.cuda.synchronize(device)  # the block's kernels end inside the window
+    was_on = tracing.ON
+    tracing.enable()
+    try:
+        with profile(activities=activities) as prof:
+            yield path
+            if ProfilerActivity.CUDA in activities:
+                torch.cuda.synchronize(device)  # the block's kernels end inside the window
+    finally:
+        if not was_on:
+            tracing.disable()
     prof.export_chrome_trace(path)
