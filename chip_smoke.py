@@ -40,7 +40,14 @@ Phases (any failure exits non-zero; no phase failure is caught):
    decompress round-trip the six benchmark workloads, and a 4 MiB block
    at K = 8192 (S = 512) gives the CPU path's blob and round-trips.  The
    single-block kernels' launch counters, zeroed just before, must all be
-   nonzero after.
+   nonzero after, and ``encode_device`` must have called the compress
+   chain (``ops.encode_chain``, one C call a request; the C calls are
+   printed beside the launches).  Then the chain's words, bit counts and
+   flat table must equal the per-kernel path's (hist256 or hist256_batch,
+   table_build, encode_lanes, each by its own wrapper) bit for bit, in one
+   C call each, on the biased 16 MiB block (row sample), 1 MiB of it
+   (every byte counted), 1,001,000 bytes of it at K = 1001 (a last row
+   of 40 bytes) and B = 1, 16 and 160 biased pages of 100 KiB.
 4b. Batched blocks: 160 blocks of 100 KiB at K = 1024 (S = 100), as
    ``tools/bench_streaming.py`` batches them.  hist256_batch and the
    batched table_build, encode_lanes and decode_lanes must equal their
@@ -51,7 +58,8 @@ Phases (any failure exits non-zero; no phase failure is caught):
    then, with the counters zeroed just before,
    ``encode_batch`` -> ``batch_decode_statics`` -> ``decode_batch`` must
    return the 160 blocks and a small batch holding a constant block; the
-   batched kernels' counters must be nonzero after.  Blocks 0, 1 and 159
+   batched kernels' counters must be nonzero after, and each
+   ``encode_batch`` one call of the compress chain.  Blocks 0, 1 and 159
    and the constant block must serialize to the CPU path's solo
    ``compress`` bytes.
 5. Times: each kernel's device time per launch (torch.profiler) beside
@@ -532,6 +540,8 @@ def main() -> None:
         table_hist,
         table_hist_plain,
     )
+    from huffman_tpu_torch.ops.encode_chain import encode_block, encode_pages
+    from huffman_tpu_torch.ops.table_build import _FIELDS as TABLE_FIELDS
     from huffman_tpu_torch.ops.table_build import (
         TABLE_LEN,
         _unpack,
@@ -764,6 +774,8 @@ def main() -> None:
     del ones, spare
 
     # 4. End to end on the card; the launch counters cover this phase only.
+    bs = NB // BK
+    bw32 = (bs * TPU_MAX_CODE_LEN + 31) // 32 + 1
     codec = TorchCodec(device=dev)
     _cuda.reset_launches()
     comp = codec.encode_device(data)
@@ -796,16 +808,62 @@ def main() -> None:
         raise AssertionError("the card's 16 MiB blob differs from the CPU path's")
     if TorchCodec(k=8192, device="cpu").compress(raw4) != b4:
         raise AssertionError("the card's k=8192 4 MiB blob differs from the CPU path's")
+    calls = {e: c for e, c in _cuda.CALLS.items() if c}
+    if calls.get("encode_chain", 0) == 0:
+        raise AssertionError(f"encode_device never took the compress chain: calls {calls}")
     print(f"end to end: 16 MiB round trip ok, ratio {ratio:.6f}, blob equals the CPU path's; "
           "k=8192 4 MiB (S=512) ok")
     print(f"workloads (raw, blob bytes): {json.dumps(round_trips)}")
-    print(f"launches in the end-to-end phase: {json.dumps(launches)}", flush=True)
+    print(f"launches in the end-to-end phase: {json.dumps(launches)}; C calls "
+          f"{json.dumps(calls)}", flush=True)
+
+    # The compress chain (one C call a request) against the per-kernel
+    # path, bit for bit: words, bit counts and the flat table.
+    def flat_of(tables):
+        return torch.cat([tables[key].reshape(-1) for key, _, _ in TABLE_FIELDS])
+
+    chain_cases = []
+    pages_np = workloads.biased_u8(BATCH * NB, 3).reshape(BATCH, NB)
+    pages = torch.from_numpy(pages_np).to(dev)
+    ragged_k = 1001  # s * k = 1,001,000: a last counted row of 40 bytes
+    for name, x, ck, stride in (
+        ("the biased 16 MiB block, row sample", data, K, 32),
+        ("1 MiB, every byte", data[: 1 << 20], 8192, 1),
+        ("a partial last row", data[: ragged_k * 1000], ragged_k, 1),
+    ):
+        cs = x.numel() // ck
+        cw32 = (cs * TPU_MAX_CODE_LEN + 31) // 32 + 1
+        _cuda.reset_launches()
+        words_c, bits_c, tables_c = encode_block(x, stride, cs, ck, cw32)
+        torch.cuda.synchronize()
+        if _cuda.CALLS["encode_chain"] != 1 or sum(_cuda.CALLS.values()) != 1:
+            raise AssertionError(f"{name}: not one chain call: {_cuda.CALLS}")
+        flat_k = build_coding_flat(table_hist(x, stride))
+        words_k, bits_k = encode_lanes(x, flat_k[:256], cs, ck, cw32)
+        expect_equal(f"chain words, {name}", words_c, words_k)
+        expect_equal(f"chain bit counts, {name}", bits_c, bits_k)
+        expect_equal(f"chain table, {name}", flat_of(tables_c), flat_k)
+        chain_cases.append(name)
+    for b in (1, 16, BATCH):
+        blk = pages[:b]
+        _cuda.reset_launches()
+        words_c, bits_c, tables_c = encode_pages(blk, bs, BK, bw32)
+        torch.cuda.synchronize()
+        if _cuda.CALLS["encode_chain_batch"] != 1 or sum(_cuda.CALLS.values()) != 1:
+            raise AssertionError(f"B={b}: not one chain call: {_cuda.CALLS}")
+        flat_k = build_coding_flat_batch(histogram256_batch(blk))
+        words_k, bits_k = encode_lanes_batch(blk, flat_k[: b * 256].view(b, 256), bs, BK, bw32)
+        expect_equal(f"chain words, B={b}", words_c, words_k)
+        expect_equal(f"chain bit counts, B={b}", bits_c, bits_k)
+        expect_equal(f"chain table, B={b}", flat_of(tables_c), flat_k)
+        chain_cases.append(f"B={b} pages of 100 KiB")
+    del pages
+    print(f"compress chain: words, bit counts and tables equal the per-kernel path's on "
+          f"{', '.join(chain_cases)}; one C call each", flush=True)
 
     # 4b. Batched blocks.  First each batched kernel against its plain
     # version at the path's shapes, then the path itself, counted.
     bcodec = TorchCodec(k=BK, device=dev)
-    bs = NB // BK
-    bw32 = (bs * TPU_MAX_CODE_LEN + 31) // 32 + 1
     blocks_np = workloads.biased_u8(BATCH * NB, BATCH).reshape(BATCH, NB)
     blocks = torch.from_numpy(blocks_np).to(dev)
     bhist = histogram256_batch(blocks)
@@ -876,6 +934,9 @@ def main() -> None:
     out_c = bcodec.decode_batch(cw, cb, ct, NB)
     torch.cuda.synchronize()
     launches_b = dict(_cuda.LAUNCHES)
+    calls_b = {e: c for e, c in _cuda.CALLS.items() if c}
+    if calls_b.get("encode_chain_batch", 0) != 2:
+        raise AssertionError(f"encode_batch did not take the compress chain once a call: {calls_b}")
     if not torch.equal(out_b.reshape(BATCH, NB), blocks):
         raise AssertionError(f"the {BATCH} x 100 KiB batch does not round-trip")
     if not torch.equal(out_c.reshape(3, NB), const):
@@ -896,7 +957,8 @@ def main() -> None:
             raise AssertionError(f"batched block {i} serializes unlike the CPU path's compress")
     print(f"batched: B={BATCH} x 100 KiB round trip ok, statics {statics}; constant-block "
           "batch ok; blocks 0, 1, 159 and the constant block equal the CPU path's blobs")
-    print(f"launches in the batched phase: {json.dumps(launches_b)}", flush=True)
+    print(f"launches in the batched phase: {json.dumps(launches_b)}; C calls "
+          f"{json.dumps(calls_b)}", flush=True)
 
     # 5. Times, after warm-up.  CUDA events around back-to-back calls and
     # the host clock come first: once the profiler has run, CUPTI stays

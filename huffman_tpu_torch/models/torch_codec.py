@@ -8,8 +8,9 @@ words.  Decompress: decode ``s`` symbols per lane and flatten.  The
 batched device API (`TorchCodec.encode_batch` / `decode_batch`) does the
 same for B equal-size blocks at once, each with its own table built from
 every byte.  On CUDA tensors each step is one hand-written kernel
-(``ops/``) for the whole batch; on CPU tensors their plain PyTorch
-versions run.
+(``ops/``) for the whole batch, and a compress whose table comes from its
+own bytes queues its three kernels by one C call
+(`ops.encode_chain`); on CPU tensors their plain PyTorch versions run.
 
 The serialized layout is the one documented at the top of
 ``huffman_tpu/models/tpu_codec.py`` (compact, huff-counts and legacy
@@ -44,9 +45,10 @@ from .. import coding, container, native, tracing
 from ..constants import NUM_SYMBOLS
 from ..constants import TPU_MAX_CODE_LEN as MAX_CODE_LEN
 from ..ops.decode_bits import decode_lanes, decode_lanes_batch, decode_tables_bitserial
-from ..ops.encode import encode_lanes, encode_lanes_batch
-from ..ops.lookup import histogram256, histogram256_batch, table_hist
-from ..ops.table_build import build_coding_device, build_coding_device_batch
+from ..ops.encode import encode_lanes
+from ..ops.encode_chain import encode_block, encode_pages
+from ..ops.lookup import histogram256
+from ..ops.table_build import build_coding_device
 from ..staging import HostCopy, PinnedRing
 
 MAGIC = 0x48545033  # 'HTP3'
@@ -312,8 +314,11 @@ class TorchCodec:
             # A zero-width pad still copies the block: pad only a partial row.
             padded = data if s * k == n else torch.nn.functional.pad(data, (0, s * k - n))
             if tables is None:
-                tables = build_coding_device(table_hist(padded, self._hist_stride(n)))
-            words, bit_counts = encode_lanes(padded, tables["enc_table"], s, k, w32)
+                words, bit_counts, tables = encode_block(
+                    padded, self._hist_stride(n), s, k, w32
+                )
+            else:
+                words, bit_counts = encode_lanes(padded, tables["enc_table"], s, k, w32)
             return TorchCompressed(
                 words=words, bit_counts=bit_counts, raw_size=n, k=k, tables=tables
             )
@@ -358,9 +363,7 @@ class TorchCodec:
             if s * k != nb:
                 raise ValueError(f"block size {nb} is not a multiple of the lane count {k}")
             w32 = (s * MAX_CODE_LEN + 31) // 32 + 1
-            tables = build_coding_device_batch(histogram256_batch(blocks))
-            words, bit_counts = encode_lanes_batch(blocks, tables["enc_table"], s, k, w32)
-            return words, bit_counts, tables
+            return encode_pages(blocks, s, k, w32)
 
     def batch_decode_statics(
         self, words: torch.Tensor, bit_counts: torch.Tensor, tables: dict, n_block: int

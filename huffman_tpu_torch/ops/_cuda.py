@@ -1,17 +1,20 @@
 """Build, load and launch the port's CUDA kernels (``csrc/*.cu``).
 
-Each source compiles with nvcc for ``sm_90a`` into its own shared
-library with a plain C interface under ``build/torch_kernels/`` at first
-use, all of them at once (one nvcc process per source), and is called
-through ctypes: every pointer and the stream are ``c_void_p``, the
-stream is PyTorch's current one, and each C entry returns
-``cudaGetLastError()`` after its launch.  The codec's kernels have a
-source each, named for it; the measurement harness's two (``carry`` and
-``fold``) share ``csrc/bench_ops.cu``.
+The sources compile with nvcc for ``sm_90a`` into shared libraries with a
+plain C interface under ``build/torch_kernels/`` at first use, all the
+libraries at once (one nvcc process each), and are called through
+ctypes: every pointer and the stream are ``c_void_p``, the stream is
+PyTorch's current one, and each C entry returns ``cudaGetLastError()``
+after its launches.  The codec's kernels have a source each, named for
+it; the measurement harness's two (``carry`` and ``fold``) share
+``csrc/bench_ops.cu``.  The compress path's four sources are linked into
+one library with ``csrc/encode_chain.cu``, whose entries queue a whole
+compress request (`CHAINS`); the other sources are a library each.
 
 ``LAUNCHES`` counts the launches of each kernel, so a caller can show
-that a path really went through the kernels.  It and the library handles
-are the module's only state.
+that a path really went through the kernels, and ``CALLS`` the calls of
+each C entry, so that it can show how often the host crossed into C.
+They and the library handles are the module's only state.
 """
 
 from __future__ import annotations
@@ -30,10 +33,21 @@ KERNELS = (
     "hist256", "hist256_batch", "table_build", "encode_lanes", "decode_lanes",
     "hist256_onehot", "carry", "fold",
 )
-#: The source of each kernel that is not named for its own.
-_SOURCE_OF = {"carry": "bench_ops", "fold": "bench_ops"}
-#: The sources, ``csrc/<source>.cu``, one library each.
-SOURCES = tuple(dict.fromkeys(_SOURCE_OF.get(name, name) for name in KERNELS))
+#: The libraries: name -> its sources, ``csrc/<source>.cu``.  The compress
+#: path's four sources are linked with the chain's; the others are a
+#: library each.
+LIBRARIES = {
+    "encode_chain": ("encode_chain", "hist256", "hist256_batch", "table_build", "encode_lanes"),
+    "decode_lanes": ("decode_lanes",),
+    "hist256_onehot": ("hist256_onehot",),
+    "bench_ops": ("bench_ops",),
+}
+#: The library that holds each kernel's C entry.
+_LIBRARY_OF = {
+    "hist256": "encode_chain", "hist256_batch": "encode_chain", "table_build": "encode_chain",
+    "encode_lanes": "encode_chain", "decode_lanes": "decode_lanes",
+    "hist256_onehot": "hist256_onehot", "carry": "bench_ops", "fold": "bench_ops",
+}
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -59,11 +73,32 @@ _ARGTYPES = {
     "fold": [_PTRS, ctypes.POINTER(_I64), ctypes.POINTER(_I32), _I32, _VP, _VP, _VP],
 }
 #: Further C entries ``<entry>_launch`` of a kernel's library: entry ->
-#: (kernel, ctypes argument types).  A launch through one counts as a
+#: ((kernel,), ctypes argument types).  A launch through one counts as a
 #: launch of its kernel.
 _MORE_ENTRIES = {
-    "encode_lanes_rows": ("encode_lanes", [_VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP]),
+    "encode_lanes_rows": (
+        ("encode_lanes",), [_VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP]
+    ),
 }
+#: C entries ``<entry>_launch`` of ``csrc/encode_chain.cu`` that queue
+#: several kernels: entry -> (the kernels in order, ctypes argument
+#: types).  A call counts one launch of each; while the recorder is on it
+#: is the span ``launch.encode_chain``.
+CHAINS = {
+    "encode_chain": (
+        ("hist256", "table_build", "encode_lanes"),
+        [_VP, _I64, _I32, _I64, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _VP],
+    ),
+    "encode_chain_batch": (
+        ("hist256_batch", "table_build", "encode_lanes"),
+        [_VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _VP],
+    ),
+}
+#: Every C entry: entry -> (the kernels a call launches, ctypes argument
+#: types).  An entry lives in the library of its first kernel.
+_ENTRIES = {name: ((name,), _ARGTYPES[name]) for name in KERNELS} | _MORE_ENTRIES | CHAINS
+#: Calls of each C entry since the last `reset_launches`.
+CALLS = {entry: 0 for entry in _ENTRIES}
 
 _lock = threading.Lock()
 _lib = None  # entry name -> its C entry point, once built
@@ -82,27 +117,27 @@ def _nvcc() -> str:
 
 def load() -> dict:
     """Each C entry ``<entry>_launch`` by entry name (a kernel's name, or
-    one of `_MORE_ENTRIES`), the libraries compiled first if needed (all
-    at once).  Raises when nvcc is missing or a build fails."""
+    one of `_MORE_ENTRIES` or `CHAINS`), the libraries compiled first if
+    needed (all at once).  Raises when nvcc is missing or a build fails."""
     global _lib, _build_log
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib
         nvcc = _nvcc()
         out_dir = os.path.join(BUILD_DIR, "torch_kernels")
 
-        def build(name):
-            return build_library(
-                name, nvcc, _FLAGS, [os.path.join(_CSRC, f"{name}.cu")], out_dir
-            )
+        def build(lib):
+            sources = [os.path.join(_CSRC, f"{src}.cu") for src in LIBRARIES[lib]]
+            return build_library(lib, nvcc, _FLAGS, sources, out_dir)
 
-        with ThreadPoolExecutor(len(SOURCES)) as pool:
-            built = list(pool.map(build, SOURCES))
-        dlls = {src: ctypes.CDLL(path) for src, (path, _) in zip(SOURCES, built)}
-        entries = {name: (name, _ARGTYPES[name]) for name in KERNELS} | _MORE_ENTRIES
+        with ThreadPoolExecutor(len(LIBRARIES)) as pool:
+            built = list(pool.map(build, LIBRARIES))
+        dlls = {lib: ctypes.CDLL(path) for lib, (path, _) in zip(LIBRARIES, built)}
         libs = {}
-        for entry, (name, argtypes) in entries.items():
-            fn = getattr(dlls[_SOURCE_OF.get(name, name)], f"{entry}_launch")
+        for entry, (kernels, argtypes) in _ENTRIES.items():
+            fn = getattr(dlls[_LIBRARY_OF[kernels[0]]], f"{entry}_launch")
             fn.argtypes = argtypes
             fn.restype = _I32
             libs[entry] = fn
@@ -118,15 +153,20 @@ def build_log() -> str:
 
 
 def reset_launches() -> None:
+    """Zero `LAUNCHES` and `CALLS`."""
     for name in KERNELS:
         LAUNCHES[name] = 0
+    for entry in CALLS:
+        CALLS[entry] = 0
 
 
 def launch(entry: str, *args) -> None:
-    """Call ``<entry>_launch(*args)`` and count a launch of its kernel;
-    raises on a CUDA error.  The C call is the span ``launch.<kernel>``
-    while the recorder (`tracing`) is on."""
-    name = _MORE_ENTRIES[entry][0] if entry in _MORE_ENTRIES else entry
+    """Call ``<entry>_launch(*args)`` and count the call and a launch of
+    each of its kernels; raises on a CUDA error.  The C call is the span
+    ``launch.<kernel>`` (``launch.encode_chain`` for a chain) while the
+    recorder (`tracing`) is on."""
+    kernels = _ENTRIES[entry][0]
+    name = "encode_chain" if entry in CHAINS else kernels[0]
     fn = load()[entry]
     if tracing.ON:
         with tracing.span("launch." + name):
@@ -135,13 +175,21 @@ def launch(entry: str, *args) -> None:
         rc = fn(*args)
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
-    LAUNCHES[name] += 1
+    CALLS[entry] += 1
+    for kernel in kernels:
+        LAUNCHES[kernel] += 1
 
 
 def stream(t) -> int:
-    """The raw handle of PyTorch's current stream on ``t``'s device."""
+    """The raw handle of PyTorch's current stream on ``t``'s device: read
+    directly where this build of torch has the call (its CUDA builds do),
+    else through a ``torch.cuda.Stream`` object, which costs the host
+    more."""
     import torch
 
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
