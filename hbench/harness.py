@@ -1,8 +1,8 @@
 """One run of one cell: set-up, the measured window, the check, the line.
 
 Closed loop, one request in flight.  A request is one call of the cell's
-entry point (`apis`) on one request input, complete when its outputs are
-ready: ``torch.cuda.synchronize()`` after the call.  The window's first
+entry point on one request input, complete when its outputs are ready:
+``torch.cuda.synchronize()`` after the call.  The window's first
 half runs compress requests, its second half decompress requests of the
 encodings that set-up made through the same path; each half cycles
 through its inputs in order.  A half's rate is the bytes of all the
@@ -16,7 +16,25 @@ torch and the program, CUDA's start, loading (or the first time building)
 the kernels, the pool from the seed, one compress of every request input
 and one decompress of every encoding.  After the window the peak device
 memory is read, the encodings are serialized for the ratio, and the
-sampled outputs are held to the reference (`check`).
+sampled outputs are held to the reference (the profile's ``Tally``).
+
+The cell's parts are found by name (`spec`).  Its entry point is the class
+``Api`` of ``hbench/entries/<api>.py``: ``Api(codec, pool, traffic)`` with
+
+* ``inputs``, the request inputs, and ``raw(i)``, input ``i`` as (B, n)
+  host bytes;
+* ``compress(x)`` and ``decompress(encoding)``, one request each;
+* ``returns_blobs``: True where a compress request returns the blob itself
+  (then the ratio is over the window's blobs); else ``encoded(out)``, a
+  compress request's output on the host (words, bits, enc, k), and
+  ``bits(out)``, its (B, K) bit counts;
+* ``decoded(out)``, a decompress request's output as host bytes, and
+  ``blobs(encoding)``, the blobs of one encoding.
+
+Only ``compress`` and ``decompress`` run on every rank of a run of several
+(`ranks`); the rest runs on rank 0 alone, after the window.  There every
+half is a number of requests fixed by rank 0 before the window, not a
+time: see `run_half`.
 """
 
 from __future__ import annotations
@@ -25,13 +43,15 @@ import contextlib
 import dataclasses
 import json
 import random
+import resource
+import statistics
 import sys
 import time
 
 import numpy as np
 import torch
 
-from . import apis, check, peaks, spec
+from . import peaks, ranks, spec
 from . import traffic as gen
 from .trace import Slice, warm_up
 
@@ -92,24 +112,17 @@ def _synchronize(device: torch.device):
     return lambda: None
 
 
-def make_codec(config: dict, device):
-    if config["profile"] != "tpu":
-        raise ValueError(f"unknown profile {config['profile']!r}")
-    from huffman_tpu_torch.models.torch_codec import TorchCodec
-
-    codec = TorchCodec(config["lanes"], device=device)
-    codec.block_bytes = config["block_bytes"]
-    return codec
-
-
 def _launches() -> int:
     from huffman_tpu_torch.ops import _cuda
 
     return sum(_cuda.LAUNCHES.values())
 
 
-def run_half(half: Half, call, inputs, sizes, seconds, device, sample, traced, out_size=None):
-    """Requests of ``call`` on ``inputs`` in turn for ``seconds``."""
+def run_half(half: Half, call, inputs, sizes, seconds, device, sample, traced, out_size=None,
+             count=None):
+    """Requests of ``call`` on ``inputs`` in turn for ``seconds``; where
+    ``count`` is given (a run of several ranks, whose requests must pair
+    up), exactly ``count`` requests, traced from the 40 % to the 60 % one."""
     sync = _synchronize(device)
     sl = Slice(half.name, device.type == "cuda") if traced else None
     launches0 = _launches()
@@ -120,14 +133,18 @@ def run_half(half: Half, call, inputs, sizes, seconds, device, sample, traced, o
     i = 0
     while True:
         now = time.perf_counter()
-        if now >= deadline:
+        if (now >= deadline) if count is None else (i >= count):
             break
         if sl is not None:
-            if state == "before" and now >= sl_from:
+            if count is None:
+                start_due, stop_due = now >= sl_from, now >= sl_to
+            else:
+                start_due, stop_due = i >= SLICE_FROM * count, i >= SLICE_TO * count
+            if state == "before" and start_due:
                 sl.start()
                 state = "in"
                 sl_to = time.perf_counter() + (SLICE_TO - SLICE_FROM) * seconds
-            elif state == "in" and (now >= sl_to or sl.requests >= SLICE_REQUESTS):
+            elif state == "in" and (stop_due or sl.requests >= SLICE_REQUESTS):
                 sl.stop()
                 state = "after"
         j = i % len(inputs)
@@ -153,7 +170,8 @@ def run_half(half: Half, call, inputs, sizes, seconds, device, sample, traced, o
             sl.requests += 1
         else:
             half.call_s.append(t_call)
-        sample.offer((j, out))
+        if sample is not None:
+            sample.offer((j, out))
     if state == "in":
         sl.stop()
     half.wall_s = end - t_start
@@ -190,25 +208,51 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+def _setup_call(call, x, paces: list | None, sync):
+    """``call(x)`` in set-up; where ``paces`` is a list (a run of several
+    ranks), ended by ``sync`` and its seconds appended."""
+    if paces is None:
+        return call(x)
+    t = time.perf_counter()
+    out = call(x)
+    sync()
+    paces.append(time.perf_counter() - t)
+    return out
+
+
+def _request_count(paces: list[float], seconds: float) -> int:
+    """Requests that fill ``seconds`` at the median pace of set-up's calls,
+    the first left out where there are others: it loads the kernels."""
+    pace = statistics.median(paces[1:] or paces) if paces else seconds
+    return max(1, round(seconds / pace))
+
+
 def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device="cuda",
-             codec=None, t0: float | None = None) -> tuple[dict, list[str]]:
-    """One run.  Returns (the result line, the check lines for stderr)."""
+             codec=None, t0: float | None = None,
+             group: ranks.Group = ranks.ONE) -> tuple[dict | None, list[str]]:
+    """One run.  Returns (the result line, the check lines for stderr);
+    on a rank other than 0 of a run of several, (None, []) once the
+    window's last collective is made."""
     t0 = time.perf_counter() if t0 is None else t0
     dev = torch.device(device)
     cfg, tr = cell.config, cell.traffic
+    lead, several = group.rank == 0, group.world > 1
+    trace = trace and lead
     if dev.type == "cuda":
         torch.cuda.init()
     t_init = time.perf_counter()
-    codec = make_codec(cfg, dev) if codec is None else codec
-    pool = gen.make_pool(cfg, tr, seed, dev)
-    api = apis.make(codec, pool, tr)
+    codec = cell.profile.make_codec(cfg, dev) if codec is None else codec
+    pool = gen.make_pool(cfg, tr, seed, dev, cell.root)
+    api = cell.entry.Api(codec, pool, tr)
     sizes = [api.raw(j).size for j in range(len(api.inputs))]
     t_pool = time.perf_counter()
-    encodings = [api.compress(x) for x in api.inputs]
+    sync = _synchronize(dev)
+    paces = {h: [] if several else None for h in ("compress", "decompress")}
+    encodings = [_setup_call(api.compress, x, paces["compress"], sync) for x in api.inputs]
     setup_failed = 0
     for e in encodings:
         try:
-            api.decompress(e)
+            _setup_call(api.decompress, e, paces["decompress"], sync)
         except Exception as err:  # counted with the window's failed requests
             setup_failed += 1
             print(f"set-up decompress raised {type(err).__name__}: {err}", file=sys.stderr)
@@ -216,34 +260,43 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device=
         warm_up(dev.type == "cuda")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+    counts = dict.fromkeys(paces)
+    if several:
+        counts = dict(zip(paces, group.broadcast(
+            [_request_count(paces[h], seconds / 2) for h in paces])))
     t_setup = time.perf_counter()
     setup_s = t_setup - t0
-    print(f"set-up {setup_s:.3f} s: imports and CUDA's start {t_init - t0:.3f}, pool "
+    who = f"rank {group.rank}: " if several else ""
+    print(f"{who}set-up {setup_s:.3f} s: imports and CUDA's start {t_init - t0:.3f}, pool "
           f"{t_pool - t_init:.3f}, encodings and decodes (kernel build or load first) "
           f"{t_setup - t_pool:.3f}", file=sys.stderr)
 
     halves = {"compress": Half("compress"), "decompress": Half("decompress")}
-    samples = {h: Reservoir(tr["check_requests"], f"{seed}:{h}") for h in halves}
+    samples = {h: Reservoir(tr["check_requests"], f"{seed}:{h}") if lead else None
+               for h in halves}
     spans = {"serialize": [], "deserialize": []}
-    out_size = len if tr["api"] == "bytes" else None
+    out_size = len if api.returns_blobs else None
     with _method_spans(type(codec), spans, spans) if trace else contextlib.nullcontext():
         run_half(halves["compress"], api.compress, api.inputs, sizes, seconds / 2, dev,
-                 samples["compress"], trace, out_size)
+                 samples["compress"], trace, out_size, counts["compress"])
         run_half(halves["decompress"], api.decompress, encodings, sizes, seconds / 2, dev,
-                 samples["decompress"], trace)
+                 samples["decompress"], trace, count=counts["decompress"])
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         peak = torch.cuda.max_memory_allocated(dev)
-    else:
-        peak = 0
+    else:  # a rehearsal on the host: the process's peak resident bytes
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    peak = group.largest(peak)
     t_window = time.perf_counter()
+    if not lead:
+        return None, []
 
     # After the window: the ratio and the least bytes a request moves;
     # then the sampled outputs go to the host, the program's state is
     # freed, and the reference judges them.
     pick = random.Random(seed).sample(range(len(encodings)), min(tr["check_blobs"], len(encodings)))
     raws = [api.raw(j) for j in range(len(api.inputs))]
-    if tr["api"] == "bytes":
+    if api.returns_blobs:
         c = halves["compress"]
         ratio = c.bytes / c.out_bytes if c.out_bytes else 0.0
         blobs = [(j, api.blobs(encodings[j])) for j in pick]
@@ -255,14 +308,14 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device=
         blobs = [(j, all_blobs[j]) for j in pick]
         bits = [api.bits(e) for e in encodings]
         halves["compress"].work_bytes = float(np.mean(
-            [peaks.compress_bytes(s, b) for s, b in zip(sizes, bits)]))
+            [cell.profile.compress_bytes(s, b) for s, b in zip(sizes, bits)]))
         halves["decompress"].work_bytes = float(np.mean(
-            [peaks.decompress_bytes(s, b) for s, b in zip(sizes, bits)]))
+            [cell.profile.decompress_bytes(s, b) for s, b in zip(sizes, bits)]))
         encoded = [(j, api.encoded(out)) for j, out in samples["compress"].items]
     decoded = [(j, api.decoded(out)) for j, out in samples["decompress"].items]
     del pool, api, encodings, samples
     t_check = time.perf_counter()
-    tally = check.Tally(cfg)
+    tally = cell.profile.Tally(cfg)
     for j, got in encoded:
         tally.encoded(raws[j], got)
     for j, got in decoded:
@@ -271,7 +324,9 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device=
         for raw, blob in zip(raws[j], bs):
             tally.blob(raw, blob)
     tally.n["failed"] = setup_failed + sum(h.failed for h in halves.values())
-    print(f"window {seconds} s, after the window "
+    print(f"window {seconds} s (halves "
+          + ", ".join(f"{h.name} {h.requests} requests in {h.wall_s:.3f} s" for h in halves.values())
+          + f"), after the window "
           f"{t_check - t_window:.3f} s, reference {time.perf_counter() - t_check:.3f} s",
           file=sys.stderr)
 
@@ -290,7 +345,7 @@ def run_cell(cell: spec.Cell, seed: int, seconds: float, trace: bool, *, device=
         "device": {
             "platform": "gpu" if dev.type == "cuda" else dev.type,
             "kind": torch.cuda.get_device_name(dev) if dev.type == "cuda" else dev.type,
-            "count": 1,
+            "count": group.world,
             "memory_peak_bytes": peak,
             "card": peaks.card_line() if dev.type == "cuda" else dev.type,
         },

@@ -4,9 +4,20 @@
 configuration and traffic mix; the configuration's file is the one its
 entry names, the traffic mix is ``hbench/traffic/<traffic>.json``, and
 every metric, end to end or per layer, is a reader of its own,
-``hbench/metrics/<name>.py`` with a function ``read(run)``.  A later cell,
-configuration, traffic mix or metric is new files and entries; nothing
-here names one.
+``hbench/metrics/<name>.py`` with a function ``read(run)``.  The files
+name the rest, each a module of its own (`part`):
+
+* the configuration's ``profile``: ``hbench/profiles/<profile>.py``, with
+  ``make_codec(config, device)``, the check ``Tally(config)`` (`check`)
+  and ``compress_bytes(n_in, bits)`` / ``decompress_bytes(n_out, bits)``,
+  the least bytes a request moves (`peaks`);
+* the traffic's ``api``: ``hbench/entries/<api>.py``, whose class ``Api``
+  is the entry point the requests call (`harness`);
+* the traffic's ``source``: ``hbench/sources/<source>.py``, with
+  ``make_pool(config, traffic, seed, device)`` (`traffic`).
+
+A later cell, configuration, traffic mix, metric, profile, entry point or
+source is new files and entries; nothing here names one.
 """
 
 from __future__ import annotations
@@ -15,6 +26,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -28,6 +40,8 @@ class Cell:
     end_to_end: list[dict]
     per_layer: list[dict]
     root: str
+    profile: types.ModuleType
+    entry: types.ModuleType
 
 
 def _reports(metric: dict, cell: str, reported: set[str] | None = None) -> bool:
@@ -55,13 +69,23 @@ def load_cell(name: str, root: str = ROOT) -> Cell:
     e2e = [m for m in bench["end_to_end"] if _reports(m, name)]
     names = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"] if _reports(m, name, names)]
-    return Cell(name, config, traffic, e2e, per_layer, root)
+    part("sources", traffic["source"], root)  # refused here, as a missing profile or api is
+    return Cell(name, config, traffic, e2e, per_layer, root,
+                part("profiles", config["profile"], root), part("entries", traffic["api"], root))
+
+
+def part(kind: str, name: str, root: str = ROOT) -> types.ModuleType:
+    """The module ``<root>/hbench/<kind>/<name>.py``; FileNotFoundError,
+    naming that path, where there is no such file."""
+    path = os.path.join(root, "hbench", kind, f"{name}.py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no {kind} file for {name!r}: {path} does not exist")
+    spec = importlib.util.spec_from_file_location(f"hbench_{kind}_{name.replace('.', '_')}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
 
 
 def reader(metric: str, root: str = ROOT):
     """The ``read(run)`` function of ``<root>/hbench/metrics/<metric>.py``."""
-    path = os.path.join(root, "hbench", "metrics", f"{metric}.py")
-    spec = importlib.util.spec_from_file_location("hbench_metric_" + metric.replace(".", "_"), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return part("metrics", metric, root).read

@@ -141,7 +141,7 @@ FAULTS = [
 
 @pytest.mark.parametrize("cell,fault", FAULTS)
 def test_planted_fault_is_not_correct(root, cell, fault):
-    line, _ = _run(root, cell, codec=lambda c: Faulty(harness.make_codec(c.config, "cpu"), fault))
+    line, _ = _run(root, cell, codec=lambda c: Faulty(c.profile.make_codec(c.config, "cpu"), fault))
     assert line["correct"] is False
     assert any(v["value"] > v["limit"] for v in line["checks"].values())
 
@@ -152,7 +152,7 @@ def test_failed_requests_are_not_correct(root):
             raise RuntimeError("planted")
 
     line, _ = _run(root, "block4m.device",
-                   codec=lambda c: Raising(harness.make_codec(c.config, "cpu"), "none"))
+                   codec=lambda c: Raising(c.profile.make_codec(c.config, "cpu"), "none"))
     assert line["correct"] is False and line["failed"] > 0
 
 
