@@ -20,18 +20,28 @@ are laid out host-major, rank r at ``divmod(r, stream)``.  In a process
 with no process group `make_mesh` gives a `LocalMesh` of one rank, and
 the step runs with no collective.  On a card the codec selects its
 device around each step: the kernels launch on the current device.
+
+`COUNTS` keeps, for each of `ShardedCodec`'s ``compress``, ``decompress``
+and ``roundtrip``, its ``calls``, the ``collectives`` they made on this
+rank (each ``all_reduce``, ``all_gather`` and ``all_gather_object``; an
+axis of size 1 makes none) and the ``gathered_bytes`` those delivered
+here (a tensor collective's output bytes; an object gather's record
+bytes).  The counters are always on.  Under the span recorder
+(`tracing`), ``sharded.compress`` and ``sharded.decompress`` split into
+the stages their methods name.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import struct
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import container
+from .. import container, tracing
 from ..constants import TPU_MAX_CODE_LEN as MAX_CODE_LEN
 from ..models.torch_codec import MAGIC, TorchCodec, TorchCompressed
 from ..ops.decode_bits import decode_lanes_batch
@@ -40,6 +50,46 @@ from ..ops.lookup import histogram256_batch
 from ..ops.table_build import build_coding_device_batch
 
 AXES = ("data", "stream")
+
+#: Per `ShardedCodec` method: calls, collectives made on this rank, and
+#: the bytes they delivered to it.  Read by the benchmark; `reset_counts`.
+COUNTS = {m: {"calls": 0, "collectives": 0, "gathered_bytes": 0}
+          for m in ("compress", "decompress", "roundtrip")}
+#: The method whose collectives are being counted, or None (a step
+#: function called on its own counts nothing).
+_method: str | None = None
+
+
+def reset_counts() -> None:
+    """Zero `COUNTS`."""
+    for c in COUNTS.values():
+        for key in c:
+            c[key] = 0
+
+
+def _count(nbytes: int) -> None:
+    """One collective that delivered ``nbytes`` to this rank."""
+    if _method is not None:
+        c = COUNTS[_method]
+        c["collectives"] += 1
+        c["gathered_bytes"] += nbytes
+
+
+def _counted(method):
+    """Count a call of a `ShardedCodec` method and the collectives it makes."""
+    name = method.__name__
+
+    @functools.wraps(method)
+    def counted(self, *args, **kwargs):
+        global _method
+        COUNTS[name]["calls"] += 1
+        outer, _method = _method, name
+        try:
+            return method(self, *args, **kwargs)
+        finally:
+            _method = outer
+
+    return counted
 
 
 class LocalMesh:
@@ -91,7 +141,17 @@ def _all_gather(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
         return t
     parts = [torch.empty_like(t) for _ in range(n)]
     dist.all_gather(parts, t.contiguous(), group=mesh.get_group(axis))
+    _count(n * t.numel() * t.element_size())
     return torch.cat(parts, dim=dim)
+
+
+def _payload_bytes(x) -> int:
+    """Bytes of the byte strings inside gathered objects."""
+    if isinstance(x, (bytes, bytearray)):
+        return len(x)
+    if isinstance(x, (list, tuple)):
+        return sum(_payload_bytes(y) for y in x)
+    return 0
 
 
 def _gather_objects(obj, mesh) -> list:
@@ -102,6 +162,7 @@ def _gather_objects(obj, mesh) -> list:
         if n > 1:
             got = [None] * n
             dist.all_gather_object(got, out, group=mesh.get_group(axis))
+            _count(_payload_bytes(got))
             out = [x for part in got for x in part]
     return out
 
@@ -123,6 +184,7 @@ def _encode_shard(blocks: torch.Tensor, mesh, k_local: int, s: int, w32: int):
     hist = histogram256_batch(blocks)
     if mesh_shape(mesh)["stream"] > 1:
         dist.all_reduce(hist, group=mesh.get_group("stream"))
+        _count(hist.numel() * hist.element_size())
     tables = build_coding_device_batch(hist)
     words, bits = encode_lanes_batch(blocks, tables["enc_table"], s, k_local, w32)
     return words, bits, tables
@@ -283,6 +345,7 @@ class ShardedCodec:
         padded[: data.shape[0]] = data
         return padded
 
+    @_counted
     def roundtrip(self, data: np.ndarray):
         """Pad to whole blocks, run the sharded step, gather.
 
@@ -301,6 +364,7 @@ class ShardedCodec:
 
     # ---------- bytes API (standard HTP3 container) ----------
 
+    @_counted
     def compress(self, raw: bytes) -> bytes:
         """The HTPC container of HTP3 blocks, byte-identical to the JAX
         package's ``ShardedCodec.compress``.  Every block is padded to
@@ -310,68 +374,81 @@ class ShardedCodec:
         if n == 0:
             return container.pack([(container.KIND_HUFF, 0, b""), container.crc_record(b"")], bb)
         nb = -(-n // bb)
-        padded = self._padded(np.frombuffer(raw, np.uint8), nb)
-        with self._on_device():
-            words, bits, lc, ss, ns = sharded_encode(
-                self._local_blocks(padded), mesh=self.mesh, k=self.k, s=self.s, w32=self.w32
-            )
-            # The data row's blocks with all their lanes, on the host.
-            words = _all_gather(words, self.mesh, "stream", 2).cpu()
-            bits = _all_gather(bits, self.mesh, "stream", 1).cpu()
-            lc, ss, ns = lc.cpu(), ss.cpu(), ns.cpu()
-            # Stream rank c serializes every n_stream-th block of its row.
-            d, c = self.mesh.get_coordinate()
-            bl = words.shape[0]
-            tc = TorchCodec(self.k, device="cpu")
-            mine = []
-            for j in range(c, min(bl, nb - d * bl), self.n_stream):
-                b = d * bl + j
-                raw_len = min(bb, n - b * bb)
-                comp = TorchCompressed(
-                    words=words[j], bit_counts=bits[j], raw_size=bb, k=self.k,
-                    tables={"len_count": lc[j], "sorted_syms": ss[j], "num_syms": ns[j]},
-                )
-                blob = tc.serialize(comp)
-                if len(blob) >= raw_len + 8:
-                    mine.append((b, (container.KIND_STORED, raw_len, raw[b * bb : b * bb + raw_len])))
-                else:
-                    mine.append((b, (container.KIND_HUFF, raw_len, blob)))
-            ranked = sorted((x for part in _gather_objects(mine, self.mesh) for x in part),
-                            key=lambda x: x[0])
-        records = [rec for _, rec in ranked]
-        records.append(container.crc_record(raw))
-        return container.pack(records, bb)
+        with tracing.span("sharded.compress"):
+            with self._on_device():
+                with tracing.span("sharded.compress.upload"):
+                    local = self._local_blocks(self._padded(np.frombuffer(raw, np.uint8), nb))
+                with tracing.span("sharded.compress.step"):
+                    words, bits, lc, ss, ns = sharded_encode(
+                        local, mesh=self.mesh, k=self.k, s=self.s, w32=self.w32
+                    )
+                with tracing.span("sharded.compress.gather"):
+                    # The data row's blocks with all their lanes, on the host.
+                    words = _all_gather(words, self.mesh, "stream", 2).cpu()
+                    bits = _all_gather(bits, self.mesh, "stream", 1).cpu()
+                    lc, ss, ns = lc.cpu(), ss.cpu(), ns.cpu()
+                with tracing.span("sharded.compress.serialize"):
+                    # Stream rank c serializes every n_stream-th block of its row.
+                    d, c = self.mesh.get_coordinate()
+                    bl = words.shape[0]
+                    tc = TorchCodec(self.k, device="cpu")
+                    mine = []
+                    for j in range(c, min(bl, nb - d * bl), self.n_stream):
+                        b = d * bl + j
+                        raw_len = min(bb, n - b * bb)
+                        comp = TorchCompressed(
+                            words=words[j], bit_counts=bits[j], raw_size=bb, k=self.k,
+                            tables={"len_count": lc[j], "sorted_syms": ss[j], "num_syms": ns[j]},
+                        )
+                        blob = tc.serialize(comp)
+                        if len(blob) >= raw_len + 8:
+                            mine.append((b, (container.KIND_STORED, raw_len,
+                                             raw[b * bb : b * bb + raw_len])))
+                        else:
+                            mine.append((b, (container.KIND_HUFF, raw_len, blob)))
+                with tracing.span("sharded.compress.gather_records"):
+                    ranked = sorted((x for part in _gather_objects(mine, self.mesh) for x in part),
+                                    key=lambda x: x[0])
+            with tracing.span("sharded.compress.pack"):
+                records = [rec for _, rec in ranked]
+                records.append(container.crc_record(raw))
+                return container.pack(records, bb)
 
+    @_counted
     def decompress(self, blob: bytes) -> bytes:
         """Decode a block container: the HTP3 records of this codec's shape
         through one sharded step, stored / ref-profile / degenerate /
         foreign-shaped records record by record (`container.decode_record`
         and the single-block decode); the total length and the crc last."""
-        _bs, total_raw, records = container.parse_records(blob)
-        tc = TorchCodec(self.k, device=self.device)
-        outs: list[bytes | None] = [None] * len(records)
-        batch = []  # indices of the records of the sharded step
-        with self._on_device():
-            for i, (kind, kx, raw_len, rec) in enumerate(records):
-                if kind != container.KIND_HUFF or raw_len == 0:
-                    outs[i] = container.decode_record(kind, kx, raw_len, rec, tc)
-                    continue
-                shape = _huff_shape(rec)
-                if shape is None or shape[:2] != (self.block_bytes, self.k) or shape[2] <= 1:
-                    # Degenerate or foreign-shaped block: single-block path.
-                    comp = tc.deserialize(rec)
-                    outs[i] = tc.decode_device(comp).cpu().numpy().tobytes()[:raw_len]
-                else:
-                    batch.append(i)
-            if batch:
-                dec = self._decode_records([records[i][3] for i in batch])
+        with tracing.span("sharded.decompress"):
+            with self._on_device():
+                with tracing.span("sharded.decompress.parse"):
+                    _bs, total_raw, records = container.parse_records(blob)
+                    tc = TorchCodec(self.k, device=self.device)
+                    outs: list[bytes | None] = [None] * len(records)
+                    batch = []  # indices of the records of the sharded step
+                    for i, (kind, kx, raw_len, rec) in enumerate(records):
+                        if kind != container.KIND_HUFF or raw_len == 0:
+                            outs[i] = container.decode_record(kind, kx, raw_len, rec, tc)
+                            continue
+                        shape = _huff_shape(rec)
+                        if (shape is None or shape[:2] != (self.block_bytes, self.k)
+                                or shape[2] <= 1):
+                            # Degenerate or foreign-shaped block: single-block path.
+                            comp = tc.deserialize(rec)
+                            outs[i] = tc.decode_device(comp).cpu().numpy().tobytes()[:raw_len]
+                        else:
+                            batch.append(i)
+                if batch:
+                    dec = self._decode_records([records[i][3] for i in batch])
+            with tracing.span("sharded.decompress.join"):
                 for j, i in enumerate(batch):
                     outs[i] = dec[j].tobytes()[: records[i][2]]
-        out = b"".join(o for o in outs if o is not None)
-        if len(out) != total_raw:
-            raise ValueError(f"container truncated: decoded {len(out)} of {total_raw} bytes")
-        container.check_crc(records, out)
-        return out
+                out = b"".join(o for o in outs if o is not None)
+                if len(out) != total_raw:
+                    raise ValueError(f"container truncated: decoded {len(out)} of {total_raw} bytes")
+                container.check_crc(records, out)
+                return out
 
     def _decode_records(self, recs: list[bytes]) -> np.ndarray:
         """(len(recs), block_bytes) uint8: HTP3 blobs of this codec's shape
@@ -381,26 +458,29 @@ class ShardedCodec:
         any rank raises on every rank."""
         bl = -(-len(recs) // self.n_data)
         d, c = self.mesh.get_coordinate()
-        host = TorchCodec(self.k, device="cpu")
-        try:
-            comps, err = [host.deserialize(r) for r in recs[d * bl : (d + 1) * bl]], None
-        except ValueError as e:
-            comps, err = [], str(e)
-        errs = [e for e in _gather_objects(err, self.mesh) if e]
+        with tracing.span("sharded.decompress.deserialize"):
+            host = TorchCodec(self.k, device="cpu")
+            try:
+                comps, err = [host.deserialize(r) for r in recs[d * bl : (d + 1) * bl]], None
+            except ValueError as e:
+                comps, err = [], str(e)
+            errs = [e for e in _gather_objects(err, self.mesh) if e]
         if errs:
             raise ValueError(errs[0])
         kl = self.k_local
-        local = torch.zeros((bl, self.s * kl), dtype=torch.uint8, device=self.device)
-        if comps:
-            w = max((cp.meta()["max_bits"] + 31) // 32 for cp in comps)
-            words = torch.zeros((len(comps), max(w, 1), kl), dtype=torch.int32)
-            for j, cp in enumerate(comps):
-                lanes = cp.words[:w, c * kl : (c + 1) * kl]
-                words[j, : lanes.shape[0]] = lanes
-            tabs = [torch.stack([cp.tables[key] for cp in comps]).to(self.device)
-                    for key in ("e_bound", "g_rank", "sorted_syms")]
-            local[: len(comps)] = sharded_decode(
-                words.to(self.device), *tabs, mesh=self.mesh, k=self.k, s=self.s, w=w
-            )
-        out = self._permute_out(self._gather(local, 1))
-        return out[: len(recs)].cpu().numpy()
+        with tracing.span("sharded.decompress.step"):
+            local = torch.zeros((bl, self.s * kl), dtype=torch.uint8, device=self.device)
+            if comps:
+                w = max((cp.meta()["max_bits"] + 31) // 32 for cp in comps)
+                words = torch.zeros((len(comps), max(w, 1), kl), dtype=torch.int32)
+                for j, cp in enumerate(comps):
+                    lanes = cp.words[:w, c * kl : (c + 1) * kl]
+                    words[j, : lanes.shape[0]] = lanes
+                tabs = [torch.stack([cp.tables[key] for cp in comps]).to(self.device)
+                        for key in ("e_bound", "g_rank", "sorted_syms")]
+                local[: len(comps)] = sharded_decode(
+                    words.to(self.device), *tabs, mesh=self.mesh, k=self.k, s=self.s, w=w
+                )
+        with tracing.span("sharded.decompress.gather"):
+            out = self._permute_out(self._gather(local, 1))
+            return out[: len(recs)].cpu().numpy()
