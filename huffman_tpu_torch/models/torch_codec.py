@@ -10,7 +10,9 @@ same for B equal-size blocks at once, each with its own table built from
 every byte.  On CUDA tensors each step is one hand-written kernel
 (``ops/``) for the whole batch, and a compress whose table comes from its
 own bytes queues its three kernels by one C call
-(`ops.encode_chain`); on CPU tensors their plain PyTorch versions run.
+(`ops.encode_chain`), and `TorchCodec.decode_device` launches a block's
+decode by one C call after one pass of checks (`ops.decode_bits.decode_block`);
+on CPU tensors their plain PyTorch versions run.
 
 The serialized layout is the one documented at the top of
 ``huffman_tpu/models/tpu_codec.py`` (compact, huff-counts and legacy
@@ -44,7 +46,13 @@ import torch
 from .. import coding, container, native, tracing
 from ..constants import NUM_SYMBOLS
 from ..constants import TPU_MAX_CODE_LEN as MAX_CODE_LEN
-from ..ops.decode_bits import decode_lanes, decode_lanes_batch, decode_tables_bitserial
+from ..ops import _cuda
+from ..ops.decode_bits import (
+    decode_block,
+    decode_lanes,
+    decode_lanes_batch,
+    decode_tables_bitserial,
+)
 from ..ops.encode import encode_lanes
 from ..ops.encode_chain import encode_block, encode_pages
 from ..ops.lookup import histogram256
@@ -325,20 +333,30 @@ class TorchCodec:
 
     def decode_device(self, comp: TorchCompressed) -> torch.Tensor:
         """Decompress to a (raw_size,) uint8 tensor on the block's device.
-        The first call fetches the block's metadata (one copy, cached)."""
+        The first call fetches the block's metadata (one copy, cached).
+
+        A block on a card (its words or its tables there) takes
+        `decode_block`: one pass of checks, one allocation, one C call; a
+        malformed one raises ValueError before it.  Each call on a card
+        counts in `_cuda.DECODE_PATHS`: "prepared" for that path,
+        "checked" for an empty or one-symbol block."""
         with tracing.span("device_api.decode_device"):
-            n, k = comp.raw_size, comp.k
-            dev = comp.words.device
-            if n == 0:
-                return torch.zeros(0, dtype=torch.uint8, device=dev)
-            m = comp.meta()
-            if m["num_syms"] <= 1:
+            n, k, words = comp.raw_size, comp.k, comp.words
+            m = comp.meta() if n else None
+            if n == 0 or m["num_syms"] <= 1:
+                if words.is_cuda:
+                    _cuda.DECODE_PATHS["checked"] += 1
+                if n == 0:
+                    return torch.zeros(0, dtype=torch.uint8, device=words.device)
                 sym = int(m["sorted_syms"][0]) if m["num_syms"] else 0
-                return torch.full((n,), sym, dtype=torch.uint8, device=dev)
+                return torch.full((n,), sym, dtype=torch.uint8, device=words.device)
             t = comp.tables
-            out = decode_lanes(
-                comp.words, t["e_bound"], t["g_rank"], t["sorted_syms"], -(-n // k)
-            )
+            e_bound, s = t["e_bound"], -(-n // k)
+            if words.is_cuda or e_bound.is_cuda:
+                out = decode_block(words, e_bound, t["g_rank"], t["sorted_syms"], k, s, n)
+                _cuda.DECODE_PATHS["prepared"] += 1
+                return out
+            out = decode_lanes(words, e_bound, t["g_rank"], t["sorted_syms"], s)
             return out.reshape(-1)[:n]
 
     # ---------- batched device API ----------

@@ -12,9 +12,11 @@ one library with ``csrc/encode_chain.cu``, whose entries queue a whole
 compress request (`CHAINS`); the other sources are a library each.
 
 ``LAUNCHES`` counts the launches of each kernel, so a caller can show
-that a path really went through the kernels, and ``CALLS`` the calls of
-each C entry, so that it can show how often the host crossed into C.
-They and the library handles are the module's only state.
+that a path really went through the kernels, ``CALLS`` the calls of
+each C entry, so that it can show how often the host crossed into C,
+and ``DECODE_PATHS`` the calls of ``TorchCodec.decode_device`` on a card
+by the path they took.  They and the library handles are the module's
+only state.
 """
 
 from __future__ import annotations
@@ -99,6 +101,11 @@ CHAINS = {
 _ENTRIES = {name: ((name,), _ARGTYPES[name]) for name in KERNELS} | _MORE_ENTRIES | CHAINS
 #: Calls of each C entry since the last `reset_launches`.
 CALLS = {entry: 0 for entry in _ENTRIES}
+#: Calls of ``TorchCodec.decode_device`` on a card since the last
+#: `reset_launches`, by path: "prepared", a block's one checked C call
+#: (`ops.decode_bits.decode_block`); "checked", every other (an empty or
+#: one-symbol block, which launches nothing).
+DECODE_PATHS = {"prepared": 0, "checked": 0}
 
 _lock = threading.Lock()
 _lib = None  # entry name -> its C entry point, once built
@@ -153,11 +160,13 @@ def build_log() -> str:
 
 
 def reset_launches() -> None:
-    """Zero `LAUNCHES` and `CALLS`."""
+    """Zero `LAUNCHES`, `CALLS` and `DECODE_PATHS`."""
     for name in KERNELS:
         LAUNCHES[name] = 0
     for entry in CALLS:
         CALLS[entry] = 0
+    for path in DECODE_PATHS:
+        DECODE_PATHS[path] = 0
 
 
 def launch(entry: str, *args) -> None:

@@ -14,15 +14,29 @@ A batch of B blocks (the vmapped decode of ``_decode_batch``) is one
 launch of the same kernel, `decode_lanes_batch`; a single block is the
 batch of one.  The CUDA kernel is ``csrc/decode_lanes.cu``;
 `decode_lanes_batch_plain` is its plain PyTorch version.
+
+`decode_block` is ``TorchCodec.decode_device``'s launch of that kernel on
+one block on a card: it knows the block's layout, so it checks the four
+tensors in one pass against what it expects of a block of that shape
+(kept per (W, k, s)), allocates the flat output once and crosses into C
+once, where `decode_lanes` checks each tensor through `_cuda.check` and
+launches through `_cuda.launch`.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
+from .. import tracing
 from ..constants import TPU_MAX_CODE_LEN as _L
 from . import _cuda
+
+_I32 = torch.int32
+#: The shapes of a block's decode tables: e_bound, g_rank and syms.
+_TABLE_SHAPES = ((_L + 2,), (_L + 1,), (256,))
 
 
 def decode_tables_bitserial(len_count, sorted_syms) -> dict:
@@ -121,6 +135,78 @@ def _decode_cuda(words, e_bound, g_rank, syms, bcount: int, s: int, w: int):
         _cuda.stream(words),
     )
     return out
+
+
+@functools.lru_cache(maxsize=64)
+def _block(shape: torch.Size, k: int, s: int) -> tuple[int, tuple]:
+    """(the output's length s*k, the C entry's arguments between the words
+    and the tables) of a block whose words have this shape; raises
+    ValueError unless the shape is (W, k)."""
+    if len(shape) != 2 or shape[1] != k:
+        raise ValueError(f"words must have shape (W, {k}), got {tuple(shape)}")
+    return s * k, (1, shape[0], shape[0], k)
+
+
+def _refuse(words, e_bound, g_rank, syms, k: int) -> None:
+    """Raise the ValueError that names the first fault `decode_block`
+    found in a block's tensors."""
+    _cuda.check(words, "words", _I32, (words.shape[0], k))
+    dev = words.get_device()
+    for t, name, shape in zip((e_bound, g_rank, syms), ("e_bound", "g_rank", "syms"),
+                              _TABLE_SHAPES):
+        _cuda.check(t, name, _I32, shape)
+        if t.get_device() != dev:
+            raise ValueError(f"{name} must be on {words.device}, got {t.device}")
+    raise AssertionError("decode_block refused a well-formed block")
+
+
+def decode_block(
+    words: torch.Tensor,
+    e_bound: torch.Tensor,
+    g_rank: torch.Tensor,
+    syms: torch.Tensor,
+    k: int,
+    s: int,
+    n: int,
+) -> torch.Tensor:
+    """The first ``n`` bytes of a block on a card, (n,) uint8: ``s``
+    symbols decoded from each of the k lanes of ``words`` and flattened
+    as ``decode_lanes(...).reshape(-1)[:n]`` does, ``n <= s*k``.
+
+    ``words`` is (W, k) int32, ``e_bound`` (17,), ``g_rank`` (16,) and
+    ``syms`` (256,) int32, all contiguous on the words' card; any other
+    raises ValueError before the C call.  One C call, counted as
+    `_cuda.launch` counts it, the span ``launch.decode_lanes`` while the
+    recorder is on."""
+    size, dims = _block(words.shape, k, s)
+    dev = words.get_device()
+    # On the words' card (the tables' device index equal to the words'),
+    # int32, the tables' shapes, contiguous.
+    if not (
+        words.is_cuda and e_bound.get_device() == dev and g_rank.get_device() == dev
+        and syms.get_device() == dev
+        and words.dtype is _I32 and e_bound.dtype is _I32 and g_rank.dtype is _I32
+        and syms.dtype is _I32
+        and e_bound.shape == _TABLE_SHAPES[0] and g_rank.shape == _TABLE_SHAPES[1]
+        and syms.shape == _TABLE_SHAPES[2]
+        and words.is_contiguous() and e_bound.is_contiguous() and g_rank.is_contiguous()
+        and syms.is_contiguous()
+    ):
+        _refuse(words, e_bound, g_rank, syms, k)
+    fn = _cuda.load()["decode_lanes"]
+    out = words.new_empty(size, dtype=torch.uint8)
+    args = (words.data_ptr(), *dims, e_bound.data_ptr(), g_rank.data_ptr(), syms.data_ptr(), s,
+            out.data_ptr(), _cuda.stream(words))
+    if tracing.ON:
+        with tracing.span("launch.decode_lanes"):
+            rc = fn(*args)
+    else:
+        rc = fn(*args)
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel decode_lanes failed to launch: error {rc}")
+    _cuda.CALLS["decode_lanes"] += 1
+    _cuda.LAUNCHES["decode_lanes"] += 1
+    return out if n == size else out[:n]
 
 
 def decode_lanes_plain(

@@ -1,0 +1,261 @@
+"""`TorchCodec.decode_device` on a card (``ops.decode_bits.decode_block``),
+on the CPU.
+
+The C entry ``decode_lanes_launch`` runs only on a card, so here it is a
+stand-in: a Python model of it that reads the words and tables and writes
+the output through the raw pointers it is given, by the plain decode.
+Blocks whose tensors report themselves on a card (`_OnCard`, from the
+compress chain's tests) send ``decode_device`` down its card path against
+it.  Held here: the bytes equal the plain decode's and the CPU codec's;
+one C call, one launch and one "prepared" count a request, into the
+output it returns; a malformed block refused before any C call; no state
+kept on the block; the empty and one-symbol blocks as before; the span
+and the counters.
+"""
+
+import dataclasses
+import struct
+import types
+
+import numpy as np
+import pytest
+import torch
+from test_torch_encode_chain import _OnCard, _read, _write
+
+from huffman_tpu_torch import TorchCodec, tracing
+from huffman_tpu_torch.models.torch_codec import FLAG_COMPACT, MAGIC
+from huffman_tpu_torch.ops import _cuda, decode_bits
+from huffman_tpu_torch.ops.decode_bits import decode_lanes_batch_plain, decode_lanes_plain
+
+torch.set_num_threads(2)
+
+
+def _decode_lanes(words, bcount, pitch, n_words, k, e_bound, g_rank, syms, s, out, stream):
+    """``decode_lanes_launch`` as ``csrc/decode_lanes.cu`` declares it."""
+    w = _read(words, bcount * pitch * k, torch.int32).view(bcount, pitch, k)
+    tables = [_read(p, bcount * n, torch.int32).view(bcount, n)
+              for p, n in ((e_bound, 17), (g_rank, 16), (syms, 256))]
+    _write(out, decode_lanes_batch_plain(w, *tables, s, n_words))
+    SEEN.append({"out": out, "bcount": bcount, "pitch": pitch, "n_words": n_words, "k": k,
+                 "s": s})
+    return 0
+
+
+#: The stand-in's calls since the fixture's start.
+SEEN: list = []
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """The stand-in for the built C entry, zeroed counters, the recorder off."""
+    monkeypatch.setattr(_cuda, "load", lambda: {"decode_lanes": _decode_lanes})
+    monkeypatch.setattr(_cuda, "stream", lambda t: 0)
+    for counts in (_cuda.LAUNCHES, _cuda.CALLS, _cuda.DECODE_PATHS):
+        for key in counts:
+            monkeypatch.setitem(counts, key, 0)
+    SEEN.clear()
+    tracing.disable()
+    tracing.reset()
+    yield
+    tracing.disable()
+    tracing.reset()
+
+
+def _biased(seed: int, n: int) -> np.ndarray:
+    p = 0.8 ** np.arange(256) * 0.2
+    p /= p.sum()
+    return np.random.default_rng(seed).choice(256, size=n, p=p).astype(np.uint8)
+
+
+def _on_card(comp):
+    """The block with every tensor reporting itself on a card."""
+    return dataclasses.replace(
+        comp, words=comp.words.as_subclass(_OnCard),
+        bit_counts=comp.bit_counts.as_subclass(_OnCard),
+        tables={key: t.as_subclass(_OnCard) for key, t in comp.tables.items()},
+    )
+
+
+def _block(codec, raw: np.ndarray, source: str):
+    """A CPU block of ``raw``: `encode_device`'s, or that one serialized
+    and parsed back."""
+    comp = codec.encode_device(torch.from_numpy(raw))
+    return comp if source == "encode_device" else codec.deserialize(codec.serialize(comp))
+
+
+def _counts() -> tuple[dict, dict, dict]:
+    nonzero = lambda d: {key: c for key, c in d.items() if c}  # noqa: E731
+    return nonzero(_cuda.CALLS), nonzero(_cuda.LAUNCHES), nonzero(_cuda.DECODE_PATHS)
+
+
+@pytest.mark.parametrize("source", ["encode_device", "deserialize"])
+@pytest.mark.parametrize("last_row", ["full", "partial"])
+@pytest.mark.parametrize("k", [64, 512])
+def test_prepared_path_equals_plain_decode_and_cpu_codec(source, last_row, k, card):
+    n = 48 * k - (0 if last_row == "full" else 37)
+    raw = _biased(k + n, n)
+    codec = TorchCodec(k, device="cpu")
+    comp = _block(codec, raw, source)
+    want = codec.decode_device(comp)
+    assert _counts() == ({}, {}, {})  # a CPU block takes the CPU path
+    t = comp.tables
+    plain = decode_lanes_plain(comp.words, t["e_bound"], t["g_rank"], t["sorted_syms"], 48)
+    got = codec.decode_device(_on_card(comp))
+    assert got.dtype == torch.uint8 and got.shape == (n,) and got.is_contiguous()
+    assert torch.equal(got, want) and torch.equal(got, plain.reshape(-1)[:n])
+    assert got.numpy().tobytes() == raw.tobytes()
+    (seen,) = SEEN
+    assert seen["bcount"] == 1 and seen["k"] == k and seen["s"] == 48
+    assert seen["pitch"] == seen["n_words"] == comp.words.shape[0]
+    # The output is the allocation the C call wrote, or a view of its first n bytes.
+    assert got.data_ptr() == seen["out"]
+    assert got.untyped_storage().nbytes() == 48 * k and got.storage_offset() == 0
+
+
+@pytest.mark.parametrize("requests", [1, 3])
+def test_one_c_call_and_one_launch_a_request(requests, card):
+    codec = TorchCodec(64, device="cpu")
+    comp = _on_card(_block(codec, _biased(1, 64 * 40), "encode_device"))
+    for _ in range(requests):
+        codec.decode_device(comp)
+    assert _counts() == ({"decode_lanes": requests}, {"decode_lanes": requests},
+                         {"prepared": requests})
+    assert len(SEEN) == requests
+
+
+def _wrong_dtype(comp):
+    return dataclasses.replace(comp, words=comp.words.to(torch.int64).as_subclass(_OnCard))
+
+
+def _short_e_bound(comp):
+    return dataclasses.replace(comp, tables=comp.tables | {"e_bound": comp.tables["e_bound"][:16]})
+
+
+def _noncontiguous_words(comp):
+    words = comp.words.as_subclass(torch.Tensor)
+    strided = torch.empty(words.shape[::-1], dtype=words.dtype).t()
+    strided.copy_(words)
+    return dataclasses.replace(comp, words=strided.as_subclass(_OnCard))
+
+
+def _words_on_the_cpu(comp):
+    return dataclasses.replace(comp, words=comp.words.as_subclass(torch.Tensor))
+
+
+def _other_lane_count(comp):
+    return dataclasses.replace(comp, k=comp.k * 2)
+
+
+MALFORMED = {
+    "words int64": (_wrong_dtype, "words must be torch.int32"),
+    "e_bound of 16": (_short_e_bound, r"e_bound must have shape \(17,\)"),
+    "non-contiguous words": (_noncontiguous_words, "words must be contiguous"),
+    "words on the CPU": (_words_on_the_cpu, "words must be a CUDA tensor"),
+    "words of another lane count": (_other_lane_count, r"words must have shape \(W, 128\)"),
+}
+
+
+@pytest.mark.parametrize("name", list(MALFORMED))
+def test_malformed_block_raises_before_any_c_call(name, card):
+    spoil, message = MALFORMED[name]
+    codec = TorchCodec(64, device="cpu")
+    comp = spoil(_on_card(_block(codec, _biased(2, 64 * 40), "deserialize")))
+    with pytest.raises(ValueError, match=message):
+        codec.decode_device(comp)
+    assert SEEN == [] and _counts() == ({}, {}, {})
+
+
+@pytest.mark.parametrize("source", ["encode_device", "deserialize"])
+def test_fresh_and_repeated_blocks_take_the_same_path(source, card):
+    codec = TorchCodec(64, device="cpu")
+    raw = _biased(3, 64 * 40)
+    fresh = _on_card(_block(codec, raw, source))
+    fields = {f.name for f in dataclasses.fields(fresh)}
+    before = {key: v for key, v in vars(fresh).items() if key != "_meta"}
+    seen = []
+    for _ in range(3):
+        out = codec.decode_device(fresh)
+        assert out.numpy().tobytes() == raw.tobytes()
+        seen.append(_counts())
+    assert seen == [({"decode_lanes": i}, {"decode_lanes": i}, {"prepared": i}) for i in (1, 2, 3)]
+    # Nothing kept on the block but the metadata `meta` caches, as before.
+    assert set(vars(fresh)) == fields
+    assert all(vars(fresh)[key] is v for key, v in before.items())
+
+
+def _one_symbol(sym: int | None, n: int) -> bytes:
+    """An HTP3 blob of ``n`` bytes coded with one zero-length code for
+    ``sym`` (none at all where None): no bit counts, no payload."""
+    mask, table = (0, b"") if sym is None else (1, bytes([1, sym]))
+    return struct.pack("<IIII", MAGIC, n, 64, mask | FLAG_COMPACT) + table
+
+
+# name -> (a CPU block of the codec, the bytes it decodes to).  The
+# encoder gives even a one-symbol input two 1-bit codes, so the
+# one-symbol blocks come from blobs.
+DEGENERATE = {
+    "empty, encode_device": (lambda c: c.encode_device(torch.zeros(0, dtype=torch.uint8)), b""),
+    "empty, deserialize": (lambda c: c.deserialize(_one_symbol(None, 0)), b""),
+    "one symbol": (lambda c: c.deserialize(_one_symbol(97, 3000)), b"a" * 3000),
+    "no symbol": (lambda c: c.deserialize(_one_symbol(None, 100)), bytes(100)),
+}
+
+
+@pytest.mark.parametrize("name", list(DEGENERATE))
+def test_empty_and_one_symbol_blocks_launch_nothing(name, card):
+    make, raw = DEGENERATE[name]
+    codec = TorchCodec(64, device="cpu")
+    comp = make(codec)
+    want = codec.decode_device(comp)
+    got = codec.decode_device(_on_card(comp))
+    assert got.dtype == want.dtype == torch.uint8 and torch.equal(got, want)
+    assert got.numpy().tobytes() == raw
+    assert SEEN == [] and _counts() == ({}, {}, {"checked": 1})
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_the_c_call_is_a_span_while_on(on, card, monkeypatch):
+    codec = TorchCodec(64, device="cpu")
+    comp = _on_card(_block(codec, _biased(4, 64 * 40), "deserialize"))
+    if on:
+        tracing.enable()
+    else:
+        def refuse(*args, **kwargs):
+            raise AssertionError("a span site called into the profiler or read a clock")
+
+        monkeypatch.setattr(torch.profiler, "record_function", refuse)
+        monkeypatch.setattr(tracing, "time", types.SimpleNamespace(perf_counter_ns=refuse))
+    codec.decode_device(comp)
+    tracing.disable()
+    table = {key: stat.count for key, stat in tracing.snapshot().items()}
+    assert table == ({(None, "device_api.decode_device"): 1,
+                      ("device_api.decode_device", "launch.decode_lanes"): 1} if on else {})
+
+
+def test_a_failed_launch_raises_and_counts_nothing(card, monkeypatch):
+    monkeypatch.setattr(_cuda, "load", lambda: {"decode_lanes": lambda *a: 700})
+    codec = TorchCodec(64, device="cpu")
+    comp = _on_card(_block(codec, _biased(5, 64 * 40), "deserialize"))
+    with pytest.raises(RuntimeError, match="decode_lanes failed to launch: error 700"):
+        codec.decode_device(comp)
+    assert _counts() == ({}, {}, {})
+
+
+def test_reset_launches_clears_decode_paths(monkeypatch):
+    for path in _cuda.DECODE_PATHS:
+        monkeypatch.setitem(_cuda.DECODE_PATHS, path, 5)
+    _cuda.reset_launches()
+    assert _cuda.DECODE_PATHS == {"prepared": 0, "checked": 0}
+
+
+def test_the_ops_keep_their_checked_path(card, monkeypatch):
+    """`decode_lanes` still checks and launches through `_cuda.launch`."""
+    launched = []
+    monkeypatch.setattr(_cuda, "launch", lambda entry, *args: launched.append(entry))
+    codec = TorchCodec(64, device="cpu")
+    comp = _on_card(_block(codec, _biased(6, 64 * 40), "deserialize"))
+    t = comp.tables
+    decode_bits.decode_lanes(comp.words, t["e_bound"], t["g_rank"], t["sorted_syms"], 40)
+    assert launched == ["decode_lanes"] and _counts()[2] == {}
+    with pytest.raises(ValueError, match="e_bound must have shape"):
+        decode_bits.decode_lanes(comp.words, t["e_bound"][:16], t["g_rank"], t["sorted_syms"], 40)
