@@ -74,7 +74,6 @@ def carry(x: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
     _check(x)
     _check_acc(acc, x)
     if x.is_cuda:
-        _cuda.load()
         out = torch.empty_like(x, memory_format=torch.contiguous_format)
         _cuda.launch(
             "carry", x.data_ptr(), x.numel() * x.element_size(), x.element_size(),
@@ -105,7 +104,6 @@ def fold(acc: torch.Tensor, *xs: torch.Tensor) -> None:
         _check(x)
         _check_acc(acc, x)
     if acc.is_cuda:
-        _cuda.load()
         storage = acc.untyped_storage()
         if acc.storage_offset() != 0 or storage.nbytes() != 4 * _ACC_WORDS:
             raise ValueError("on a card acc must come from fused.accumulator")

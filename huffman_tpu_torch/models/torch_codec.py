@@ -8,11 +8,12 @@ words.  Decompress: decode ``s`` symbols per lane and flatten.  The
 batched device API (`TorchCodec.encode_batch` / `decode_batch`) does the
 same for B equal-size blocks at once, each with its own table built from
 every byte.  On CUDA tensors each step is one hand-written kernel
-(``ops/``) for the whole batch, and a compress whose table comes from its
-own bytes queues its three kernels by one C call
-(`ops.encode_chain`), and `TorchCodec.decode_device` launches a block's
-decode by one C call after one pass of checks (`ops.decode_bits.decode_block`);
-on CPU tensors their plain PyTorch versions run.
+(``ops/``) for the whole batch, and every C call goes through
+`ops._cuda.launch`: a compress whose table comes from its own bytes
+queues its three kernels by one C call (`ops.encode_chain`), and a
+block's decode is one C call after one pass of checks
+(`ops.decode_bits.decode_block`, the one route of a single block on a
+card); on CPU tensors their plain PyTorch versions run.
 
 The serialized layout is the one documented at the top of
 ``huffman_tpu/models/tpu_codec.py`` (compact, huff-counts and legacy

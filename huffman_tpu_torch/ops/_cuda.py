@@ -8,8 +8,12 @@ PyTorch's current one, and each C entry returns ``cudaGetLastError()``
 after its launches.  The codec's kernels have a source each, named for
 it; the measurement harness's two (``carry`` and ``fold``) share
 ``csrc/bench_ops.cu``.  The compress path's four sources are linked into
-one library with ``csrc/encode_chain.cu``, whose entries queue a whole
-compress request (`CHAINS`); the other sources are a library each.
+one library with ``csrc/encode_chain.cu``, whose two entries each queue a
+whole compress request; the other sources are a library each.
+
+`ENTRIES` holds one record for each C entry: its library, the kernels one
+call launches and its argument types.  `launch` is the one caller of a C
+entry in the package: every op wrapper crosses into C through it.
 
 ``LAUNCHES`` counts the launches of each kernel, so a caller can show
 that a path really went through the kernels, ``CALLS`` the calls of
@@ -26,81 +30,81 @@ import os
 import shutil
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
+
+import torch
 
 from .. import tracing
 from .._build import BUILD_DIR, build_library
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-KERNELS = (
-    "hist256", "hist256_batch", "table_build", "encode_lanes", "decode_lanes",
-    "hist256_onehot", "carry", "fold",
-)
-#: The libraries: name -> its sources, ``csrc/<source>.cu``.  The compress
-#: path's four sources are linked with the chain's; the others are a
-#: library each.
+#: The libraries: name -> its sources, ``csrc/<source>.cu``.
 LIBRARIES = {
     "encode_chain": ("encode_chain", "hist256", "hist256_batch", "table_build", "encode_lanes"),
     "decode_lanes": ("decode_lanes",),
     "hist256_onehot": ("hist256_onehot",),
     "bench_ops": ("bench_ops",),
 }
-#: The library that holds each kernel's C entry.
-_LIBRARY_OF = {
-    "hist256": "encode_chain", "hist256_batch": "encode_chain", "table_build": "encode_chain",
-    "encode_lanes": "encode_chain", "decode_lanes": "decode_lanes",
-    "hist256_onehot": "hist256_onehot", "carry": "bench_ops", "fold": "bench_ops",
-}
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-#: Launches of each kernel since the last `reset_launches`.
-LAUNCHES = {name: 0 for name in KERNELS}
-
 #: Where nvcc is looked for after $CUDA_HOME, before $PATH.
 _CUDA_ROOT = "/usr/local/cuda"
 
-#: ctypes argument types of each ``<name>_launch``.
+
+class Entry(NamedTuple):
+    """A C entry ``<entry>_launch``: the library that holds it, the
+    kernels one call launches (in order) and its ctypes argument types;
+    ``name``, its kernel's or, where it launches several, its library's,
+    names its span ``launch.<name>`` and its launch errors."""
+
+    library: str
+    kernels: tuple
+    argtypes: list
+    name: str
+    span: str
+
+
+def _entry(library: str, kernels: tuple, *argtypes) -> Entry:
+    name = kernels[0] if len(kernels) == 1 else library
+    return Entry(library, kernels, list(argtypes), name, "launch." + name)
+
+
 _VP, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_PTRS = ctypes.POINTER(_VP)
-_ARGTYPES = {
-    "hist256": [_VP, _I64, _I32, _I64, _I32, _I32, _VP, _VP],
-    "hist256_batch": [_VP, _I32, _I64, _VP, _VP],
-    "table_build": [_VP, _I32, _VP, _VP],
-    "encode_lanes": [_VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP],
-    "decode_lanes": [_VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP, _VP],
-    "hist256_onehot": [_VP, _I64, _I32, _VP, _VP],
-    "carry": [_VP, _I64, _I32, _VP, _VP, _VP],
-    "fold": [_PTRS, ctypes.POINTER(_I64), ctypes.POINTER(_I32), _I32, _VP, _VP, _VP],
+#: Every C entry, by entry name.
+ENTRIES = {
+    "hist256": _entry("encode_chain", ("hist256",), _VP, _I64, _I32, _I64, _I32, _I32, _VP, _VP),
+    "hist256_batch": _entry("encode_chain", ("hist256_batch",), _VP, _I32, _I64, _VP, _VP),
+    "table_build": _entry("encode_chain", ("table_build",), _VP, _I32, _VP, _VP),
+    "encode_lanes": _entry(
+        "encode_chain", ("encode_lanes",), _VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP),
+    "decode_lanes": _entry(
+        "decode_lanes", ("decode_lanes",),
+        _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _I32, _VP, _VP),
+    "hist256_onehot": _entry("hist256_onehot", ("hist256_onehot",), _VP, _I64, _I32, _VP, _VP),
+    "carry": _entry("bench_ops", ("carry",), _VP, _I64, _I32, _VP, _VP, _VP),
+    "fold": _entry(
+        "bench_ops", ("fold",),
+        ctypes.POINTER(_VP), ctypes.POINTER(_I64), ctypes.POINTER(_I32), _I32, _VP, _VP, _VP),
+    # encode_lanes with each lane's row count; ``encode_lanes_launch``
+    # keeps its argument list for the A/B tool's builds of older sources.
+    "encode_lanes_rows": _entry(
+        "encode_chain", ("encode_lanes",), _VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP),
+    # A whole compress request: a block's, and a batch of pages'.
+    "encode_chain": _entry(
+        "encode_chain", ("hist256", "table_build", "encode_lanes"),
+        _VP, _I64, _I32, _I64, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _VP),
+    "encode_chain_batch": _entry(
+        "encode_chain", ("hist256_batch", "table_build", "encode_lanes"),
+        _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _VP),
 }
-#: Further C entries ``<entry>_launch`` of a kernel's library: entry ->
-#: ((kernel,), ctypes argument types).  A launch through one counts as a
-#: launch of its kernel.
-_MORE_ENTRIES = {
-    "encode_lanes_rows": (
-        ("encode_lanes",), [_VP, _VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP]
-    ),
-}
-#: C entries ``<entry>_launch`` of ``csrc/encode_chain.cu`` that queue
-#: several kernels: entry -> (the kernels in order, ctypes argument
-#: types).  A call counts one launch of each; while the recorder is on it
-#: is the span ``launch.encode_chain``.
-CHAINS = {
-    "encode_chain": (
-        ("hist256", "table_build", "encode_lanes"),
-        [_VP, _I64, _I32, _I64, _I32, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _VP],
-    ),
-    "encode_chain_batch": (
-        ("hist256_batch", "table_build", "encode_lanes"),
-        [_VP, _I32, _I32, _I32, _I32, _VP, _VP, _VP, _VP, _VP],
-    ),
-}
-#: Every C entry: entry -> (the kernels a call launches, ctypes argument
-#: types).  An entry lives in the library of its first kernel.
-_ENTRIES = {name: ((name,), _ARGTYPES[name]) for name in KERNELS} | _MORE_ENTRIES | CHAINS
+
+#: Launches of each kernel since the last `reset_launches`.
+LAUNCHES = {kernel: 0 for e in ENTRIES.values() for kernel in e.kernels}
 #: Calls of each C entry since the last `reset_launches`.
-CALLS = {entry: 0 for entry in _ENTRIES}
+CALLS = {entry: 0 for entry in ENTRIES}
 #: Calls of ``TorchCodec.decode_device`` on a card since the last
 #: `reset_launches`, by path: "prepared", a block's one checked C call
 #: (`ops.decode_bits.decode_block`); "checked", every other (an empty or
@@ -123,9 +127,9 @@ def _nvcc() -> str:
 
 
 def load() -> dict:
-    """Each C entry ``<entry>_launch`` by entry name (a kernel's name, or
-    one of `_MORE_ENTRIES` or `CHAINS`), the libraries compiled first if
-    needed (all at once).  Raises when nvcc is missing or a build fails."""
+    """Each C entry ``<entry>_launch`` by its name in `ENTRIES`, the
+    libraries compiled first if needed (all at once).  Raises when nvcc is
+    missing or a build fails."""
     global _lib, _build_log
     if _lib is not None:
         return _lib
@@ -143,9 +147,9 @@ def load() -> dict:
             built = list(pool.map(build, LIBRARIES))
         dlls = {lib: ctypes.CDLL(path) for lib, (path, _) in zip(LIBRARIES, built)}
         libs = {}
-        for entry, (kernels, argtypes) in _ENTRIES.items():
-            fn = getattr(dlls[_LIBRARY_OF[kernels[0]]], f"{entry}_launch")
-            fn.argtypes = argtypes
+        for entry, e in ENTRIES.items():
+            fn = getattr(dlls[e.library], f"{entry}_launch")
+            fn.argtypes = e.argtypes
             fn.restype = _I32
             libs[entry] = fn
         _build_log = "".join(log for _, log in built)
@@ -161,8 +165,8 @@ def build_log() -> str:
 
 def reset_launches() -> None:
     """Zero `LAUNCHES`, `CALLS` and `DECODE_PATHS`."""
-    for name in KERNELS:
-        LAUNCHES[name] = 0
+    for kernel in LAUNCHES:
+        LAUNCHES[kernel] = 0
     for entry in CALLS:
         CALLS[entry] = 0
     for path in DECODE_PATHS:
@@ -170,36 +174,28 @@ def reset_launches() -> None:
 
 
 def launch(entry: str, *args) -> None:
-    """Call ``<entry>_launch(*args)`` and count the call and a launch of
-    each of its kernels; raises on a CUDA error.  The C call is the span
-    ``launch.<kernel>`` (``launch.encode_chain`` for a chain) while the
-    recorder (`tracing`) is on."""
-    kernels = _ENTRIES[entry][0]
-    name = "encode_chain" if entry in CHAINS else kernels[0]
+    """Call ``<entry>_launch(*args)``, the libraries built first if
+    needed, and count the call and a launch of each of its kernels; raises
+    on a CUDA error, counting nothing.  The C call is the entry's span
+    (`Entry`) while the recorder (`tracing`) is on."""
+    e = ENTRIES[entry]
     fn = load()[entry]
     if tracing.ON:
-        with tracing.span("launch." + name):
+        with tracing.span(e.span):
             rc = fn(*args)
     else:
         rc = fn(*args)
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {rc}")
+        raise RuntimeError(f"CUDA kernel {e.name} failed to launch: error {rc}")
     CALLS[entry] += 1
-    for kernel in kernels:
+    for kernel in e.kernels:
         LAUNCHES[kernel] += 1
 
 
 def stream(t) -> int:
-    """The raw handle of PyTorch's current stream on ``t``'s device: read
-    directly where this build of torch has the call (its CUDA builds do),
-    else through a ``torch.cuda.Stream`` object, which costs the host
-    more."""
-    import torch
-
-    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if raw is not None:
-        return raw(t.get_device())
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on the card of the CUDA
+    tensor ``t``."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(t, name: str, dtype, shape: tuple) -> None:

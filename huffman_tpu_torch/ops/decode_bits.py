@@ -15,22 +15,18 @@ launch of the same kernel, `decode_lanes_batch`; a single block is the
 batch of one.  The CUDA kernel is ``csrc/decode_lanes.cu``;
 `decode_lanes_batch_plain` is its plain PyTorch version.
 
-`decode_block` is ``TorchCodec.decode_device``'s launch of that kernel on
-one block on a card: it knows the block's layout, so it checks the four
-tensors in one pass against what it expects of a block of that shape
-(kept per (W, k, s)), allocates the flat output once and crosses into C
-once, where `decode_lanes` checks each tensor through `_cuda.check` and
-launches through `_cuda.launch`.
+A single block on a card has one route to that kernel, `decode_block`
+(``TorchCodec.decode_device``'s, and `decode_lanes`'s): it checks the
+four tensors in one pass against what it expects of a block of that
+shape, allocates the flat output once and launches through
+`_cuda.launch`, as the batch does.
 """
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
-from .. import tracing
 from ..constants import TPU_MAX_CODE_LEN as _L
 from . import _cuda
 
@@ -88,7 +84,8 @@ def decode_lanes(
     if len(words.shape) != 2:
         raise ValueError(f"expected (W, k) words, got {tuple(words.shape)}")
     if words.is_cuda:
-        return _decode_cuda(words, e_bound, g_rank, syms, 1, s, words.shape[0])
+        k = words.shape[1]
+        return decode_block(words, e_bound, g_rank, syms, k, s, s * k).view(s, k)
     if words.device.type != "cpu":
         raise ValueError(f"unsupported device {words.device}")
     return decode_lanes_plain(words, e_bound, g_rank, syms, s)
@@ -112,39 +109,21 @@ def decode_lanes_batch(
     if words.is_cuda:
         if len(words.shape) != 3 or words.shape[0] < 1:
             raise ValueError(f"expected (B, W, k) words, got {tuple(words.shape)}")
-        return _decode_cuda(words, e_bound, g_rank, syms, words.shape[0], s, w)
+        bcount, n_words, k = words.shape
+        _cuda.check(words, "words", _I32, (bcount, n_words, k))
+        for t, name, shape in zip((e_bound, g_rank, syms), ("e_bound", "g_rank", "syms"),
+                                  _TABLE_SHAPES):
+            _cuda.check(t, name, _I32, (bcount,) + shape)
+        out = torch.empty((bcount, s, k), dtype=torch.uint8, device=words.device)
+        _cuda.launch(
+            "decode_lanes", words.data_ptr(), bcount, n_words, max(min(w, n_words), 0), k,
+            e_bound.data_ptr(), g_rank.data_ptr(), syms.data_ptr(), s, out.data_ptr(),
+            _cuda.stream(words),
+        )
+        return out
     if words.device.type != "cpu":
         raise ValueError(f"unsupported device {words.device}")
     return decode_lanes_batch_plain(words, e_bound, g_rank, syms, s, w)
-
-
-def _decode_cuda(words, e_bound, g_rank, syms, bcount: int, s: int, w: int):
-    """One launch over ``bcount`` blocks; the output takes the inputs'
-    leading dimensions (none for a single block, (B,) for a batch)."""
-    lead = tuple(words.shape[:-2])
-    n_words, k = words.shape[-2:]
-    _cuda.check(words, "words", torch.int32, lead + (n_words, k))
-    _cuda.check(e_bound, "e_bound", torch.int32, lead + (_L + 2,))
-    _cuda.check(g_rank, "g_rank", torch.int32, lead + (_L + 1,))
-    _cuda.check(syms, "syms", torch.int32, lead + (256,))
-    _cuda.load()
-    out = torch.empty(lead + (s, k), dtype=torch.uint8, device=words.device)
-    _cuda.launch(
-        "decode_lanes", words.data_ptr(), bcount, n_words, max(min(w, n_words), 0), k,
-        e_bound.data_ptr(), g_rank.data_ptr(), syms.data_ptr(), s, out.data_ptr(),
-        _cuda.stream(words),
-    )
-    return out
-
-
-@functools.lru_cache(maxsize=64)
-def _block(shape: torch.Size, k: int, s: int) -> tuple[int, tuple]:
-    """(the output's length s*k, the C entry's arguments between the words
-    and the tables) of a block whose words have this shape; raises
-    ValueError unless the shape is (W, k)."""
-    if len(shape) != 2 or shape[1] != k:
-        raise ValueError(f"words must have shape (W, {k}), got {tuple(shape)}")
-    return s * k, (1, shape[0], shape[0], k)
 
 
 def _refuse(words, e_bound, g_rank, syms, k: int) -> None:
@@ -170,15 +149,15 @@ def decode_block(
     n: int,
 ) -> torch.Tensor:
     """The first ``n`` bytes of a block on a card, (n,) uint8: ``s``
-    symbols decoded from each of the k lanes of ``words`` and flattened
-    as ``decode_lanes(...).reshape(-1)[:n]`` does, ``n <= s*k``.
+    symbols decoded from each of the k lanes of ``words``, lane-interleaved
+    (byte ``i`` from lane ``i % k``), ``n <= s*k``.
 
     ``words`` is (W, k) int32, ``e_bound`` (17,), ``g_rank`` (16,) and
     ``syms`` (256,) int32, all contiguous on the words' card; any other
-    raises ValueError before the C call.  One C call, counted as
-    `_cuda.launch` counts it, the span ``launch.decode_lanes`` while the
-    recorder is on."""
-    size, dims = _block(words.shape, k, s)
+    raises ValueError before the C call.  One `_cuda.launch`; the output
+    is its allocation of s*k bytes, or a view of its first n."""
+    if len(words.shape) != 2 or words.shape[1] != k:
+        raise ValueError(f"words must have shape (W, {k}), got {tuple(words.shape)}")
     dev = words.get_device()
     # On the words' card (the tables' device index equal to the words'),
     # int32, the tables' shapes, contiguous.
@@ -193,19 +172,12 @@ def decode_block(
         and syms.is_contiguous()
     ):
         _refuse(words, e_bound, g_rank, syms, k)
-    fn = _cuda.load()["decode_lanes"]
+    size, n_words = s * k, words.shape[0]
     out = words.new_empty(size, dtype=torch.uint8)
-    args = (words.data_ptr(), *dims, e_bound.data_ptr(), g_rank.data_ptr(), syms.data_ptr(), s,
-            out.data_ptr(), _cuda.stream(words))
-    if tracing.ON:
-        with tracing.span("launch.decode_lanes"):
-            rc = fn(*args)
-    else:
-        rc = fn(*args)
-    if rc != 0:
-        raise RuntimeError(f"CUDA kernel decode_lanes failed to launch: error {rc}")
-    _cuda.CALLS["decode_lanes"] += 1
-    _cuda.LAUNCHES["decode_lanes"] += 1
+    _cuda.launch(
+        "decode_lanes", words.data_ptr(), 1, n_words, n_words, k, e_bound.data_ptr(),
+        g_rank.data_ptr(), syms.data_ptr(), s, out.data_ptr(), _cuda.stream(words),
+    )
     return out if n == size else out[:n]
 
 

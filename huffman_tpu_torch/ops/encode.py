@@ -73,7 +73,6 @@ def _encode_cuda(blocks, enc_tables, bcount: int, s: int, k: int, w32: int, lane
     _cuda.check(enc_tables, "enc_tables", torch.int32, lead + (256,))
     if lane_rows is not None:
         _cuda.check(lane_rows, "lane_rows", torch.int32, (k,))
-    _cuda.load()
     words = torch.empty(lead + (w32, k), dtype=torch.int32, device=blocks.device)
     bits = torch.empty(lead + (k,), dtype=torch.int32, device=blocks.device)
     args = (blocks.data_ptr(), enc_tables.data_ptr(), bcount, s, k, w32)

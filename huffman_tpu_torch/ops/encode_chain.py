@@ -94,7 +94,6 @@ def encode_block(
         tables = build_coding_device(table_hist(padded, hist_stride))
         return *encode_lanes(padded, tables["enc_table"], s, k, w32), tables
     _cuda.check(padded, "padded", torch.uint8, (s * k,))
-    _cuda.load()
     rows, row_len, pitch, last_len, bias = _geometry(s * k, hist_stride)
     return _launch(
         "encode_chain", padded, 1, w32, k, False,
@@ -115,7 +114,6 @@ def encode_pages(
         return *encode_lanes_batch(blocks, tables["enc_table"], s, k, w32), tables
     bcount = blocks.shape[0]
     _cuda.check(blocks, "blocks", torch.uint8, (bcount, s * k))
-    _cuda.load()
     return _launch(
         "encode_chain_batch", blocks, bcount, w32, k, True,
         (blocks.data_ptr(), bcount, s, k, w32),

@@ -63,7 +63,6 @@ def hist_variant(x: torch.Tensor, variant: str) -> torch.Tensor:
     mma = _check(x, variant)
     if x.is_cuda:
         _cuda.check(x, "x", torch.uint8, tuple(x.shape))
-        _cuda.load()
         if x.data_ptr() % 16:
             raise ValueError("x must be 16-byte aligned")
         out = torch.empty(256, dtype=torch.int32, device=x.device)

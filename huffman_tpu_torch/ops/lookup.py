@@ -52,7 +52,6 @@ def histogram256(x: torch.Tensor) -> torch.Tensor:
 def _table_hist_cuda(padded: torch.Tensor, hist_stride: int) -> torch.Tensor:
     n = padded.shape[0]
     _cuda.check(padded, "padded", torch.uint8, (n,))
-    _cuda.load()
     rows, row_len, pitch, last_len, bias = _geometry(n, hist_stride)
     out = torch.empty(256, dtype=torch.int32, device=padded.device)
     _cuda.launch(
@@ -86,7 +85,6 @@ def histogram256_batch(blocks: torch.Tensor) -> torch.Tensor:
             raise ValueError("expected a non-empty (B, n) uint8 tensor")
         bcount, n = blocks.shape
         _cuda.check(blocks, "blocks", torch.uint8, (bcount, n))
-        _cuda.load()
         out = torch.empty((bcount, 256), dtype=torch.int32, device=blocks.device)
         _cuda.launch(
             "hist256_batch", blocks.data_ptr(), bcount, n, out.data_ptr(),

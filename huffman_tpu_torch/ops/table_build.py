@@ -99,7 +99,6 @@ def build_coding_flat_batch(hists: torch.Tensor) -> torch.Tensor:
 def _build_cuda(hists: torch.Tensor, bcount: int) -> torch.Tensor:
     """One launch over ``bcount`` histograms, (256,) or (B, 256)."""
     _cuda.check(hists, "hists", torch.int32, tuple(hists.shape[:-1]) + (_N,))
-    _cuda.load()
     out = torch.empty(bcount * TABLE_LEN, dtype=torch.int32, device=hists.device)
     _cuda.launch("table_build", hists.data_ptr(), bcount, out.data_ptr(), _cuda.stream(hists))
     return out

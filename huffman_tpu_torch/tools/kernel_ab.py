@@ -276,7 +276,7 @@ def _build_all(jobs: dict) -> dict:
     for tag, (name, _) in jobs.items():
         lib = ctypes.CDLL(paths[tag])
         fn = getattr(lib, f"{name}_launch")
-        fn.argtypes = _cuda._ARGTYPES[name]
+        fn.argtypes = _cuda.ENTRIES[name].argtypes
         fn.restype = ctypes.c_int
         fns[tag] = (fn, lib)
     return fns

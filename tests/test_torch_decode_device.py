@@ -20,7 +20,7 @@ import types
 import numpy as np
 import pytest
 import torch
-from test_torch_encode_chain import _OnCard, _read, _write
+from test_torch_encode_chain import STAND_INS, _OnCard, _read, _write
 
 from huffman_tpu_torch import TorchCodec, tracing
 from huffman_tpu_torch.models.torch_codec import FLAG_COMPACT, MAGIC
@@ -248,14 +248,102 @@ def test_reset_launches_clears_decode_paths(monkeypatch):
     assert _cuda.DECODE_PATHS == {"prepared": 0, "checked": 0}
 
 
+class _OnOtherCard(_OnCard):
+    """A CPU tensor that says it is on the second card."""
+
+    def get_device(self):
+        return 1
+
+
 def test_the_ops_keep_their_checked_path(card, monkeypatch):
-    """`decode_lanes` still checks and launches through `_cuda.launch`."""
-    launched = []
-    monkeypatch.setattr(_cuda, "launch", lambda entry, *args: launched.append(entry))
+    """`decode_lanes` on a card takes `decode_block`, and
+    `decode_lanes_batch` launches through `_cuda.launch`; neither counts
+    in `DECODE_PATHS`."""
+    blocks, launched = [], []
+    block, launch = decode_bits.decode_block, _cuda.launch
+    monkeypatch.setattr(decode_bits, "decode_block", lambda *a: blocks.append(a[4:]) or block(*a))
+    monkeypatch.setattr(_cuda, "launch",
+                        lambda entry, *args: launched.append(entry) or launch(entry, *args))
     codec = TorchCodec(64, device="cpu")
     comp = _on_card(_block(codec, _biased(6, 64 * 40), "deserialize"))
     t = comp.tables
-    decode_bits.decode_lanes(comp.words, t["e_bound"], t["g_rank"], t["sorted_syms"], 40)
-    assert launched == ["decode_lanes"] and _counts()[2] == {}
+    tabs = (t["e_bound"], t["g_rank"], t["sorted_syms"])
+    out = decode_bits.decode_lanes(comp.words, *tabs, 40)
+    assert blocks == [(64, 40, 40 * 64)] and launched == ["decode_lanes"]
+    assert out.shape == (40, 64) and out.dtype == torch.uint8 and out.is_contiguous()
+    assert torch.equal(out, decode_lanes_plain(comp.words, *tabs, 40))
+    batch = decode_bits.decode_lanes_batch(
+        comp.words[None], *(x[None] for x in tabs), 40, comp.words.shape[0])
+    assert blocks == [(64, 40, 40 * 64)] and launched == ["decode_lanes"] * 2
+    assert batch.shape == (1, 40, 64) and torch.equal(batch[0], out)
+    assert _counts()[2] == {}
     with pytest.raises(ValueError, match="e_bound must have shape"):
         decode_bits.decode_lanes(comp.words, t["e_bound"][:16], t["g_rank"], t["sorted_syms"], 40)
+    # Tables on another card than the words are refused as decode_device refuses them.
+    with pytest.raises(ValueError, match="g_rank must be on"):
+        decode_bits.decode_lanes(comp.words, t["e_bound"], t["g_rank"].as_subclass(_OnOtherCard),
+                                 t["sorted_syms"], 40)
+    assert launched == ["decode_lanes"] * 2 and len(SEEN) == 2
+
+
+def _put(t: torch.Tensor) -> torch.Tensor:
+    return t.as_subclass(_OnCard)
+
+
+def _cases() -> dict:
+    """name -> (a call of the codec on tensors passed through ``on`` (`_put`
+    them on the card, or leave them), returning a tensor; the C entries it
+    calls; the kernels it launches; its DECODE_PATHS)."""
+    codec = TorchCodec(64, device="cpu")
+    raw = torch.from_numpy(_biased(7, 64 * 40))
+    comp = _block(codec, raw.numpy(), "deserialize")
+    pages = raw.view(2, 64 * 20)
+    words, bits, tables = codec.encode_batch(pages)
+    shared = codec.build_tables(torch.arange(256, dtype=torch.uint8))
+    tabs = (comp.tables["e_bound"], comp.tables["g_rank"], comp.tables["sorted_syms"])
+    return {
+        "encode_device": (lambda on: codec.encode_device(on(raw)).words,
+                          ["encode_chain"], ("hist256", "table_build", "encode_lanes"), {}),
+        "encode_device(tables=)": (
+            lambda on: codec.encode_device(on(raw), {k: on(t) for k, t in shared.items()}).words,
+            ["encode_lanes"], ("encode_lanes",), {}),
+        "encode_batch": (lambda on: codec.encode_batch(on(pages))[0], ["encode_chain_batch"],
+                         ("hist256_batch", "table_build", "encode_lanes"), {}),
+        "decode_device": (
+            lambda on: codec.decode_device(dataclasses.replace(
+                comp, words=on(comp.words), bit_counts=on(comp.bit_counts),
+                tables={k: on(t) for k, t in comp.tables.items()})),
+            ["decode_lanes"], ("decode_lanes",), {"prepared": 1}),
+        "decode_batch": (
+            lambda on: codec.decode_batch(on(words), on(bits), {k: on(t) for k, t in tables.items()},
+                                          64 * 20),
+            ["decode_lanes"], ("decode_lanes",), {}),
+        "decode_lanes": (lambda on: decode_bits.decode_lanes(on(comp.words), *map(on, tabs), 40),
+                         ["decode_lanes"], ("decode_lanes",), {}),
+    }
+
+
+@pytest.mark.parametrize("spans", [False, True])
+@pytest.mark.parametrize("name", list(_cases()))
+def test_every_c_call_goes_through_launch(name, spans, card, monkeypatch):
+    """Each device-API method on the card crosses into C only through
+    `_cuda.launch`: the stand-ins see exactly the entries `launch` was
+    given, and the counts and spans are those of those entries."""
+    run, entries, kernels, paths = _cases()[name]
+    plain = run(lambda t: t)
+    called, launched = [], []
+    stand_ins = STAND_INS | {"decode_lanes": _decode_lanes}
+    monkeypatch.setattr(_cuda, "load", lambda: {
+        e: (lambda *a, e=e, f=f: called.append(e) or f(*a)) for e, f in stand_ins.items()})
+    launch = _cuda.launch
+    monkeypatch.setattr(_cuda, "launch",
+                        lambda entry, *args: launched.append(entry) or launch(entry, *args))
+    if spans:
+        tracing.enable()
+    got = run(_put)
+    tracing.disable()
+    assert torch.equal(got, plain)
+    assert called == launched == entries
+    assert _counts() == ({e: 1 for e in entries}, {k: 1 for k in kernels}, paths)
+    opened = [key[1] for key in tracing.snapshot() if key[1].startswith("launch.")]
+    assert opened == ([_cuda.ENTRIES[e].span for e in entries] if spans else [])

@@ -94,6 +94,10 @@ def _chain_batch(blocks, bcount, s, k, w32, hist, table, words, bits, stream):
             or _encode_lanes(blocks, table, bcount, s, k, w32, words, bits, stream))
 
 
+#: The C entries that queue a whole compress request: those of the table
+#: that launch more than one kernel.
+CHAINS = [entry for entry, e in _cuda.ENTRIES.items() if len(e.kernels) > 1]
+
 STAND_INS = {
     "hist256": _hist256, "hist256_batch": _hist256_batch, "table_build": _table_build,
     "encode_lanes": _encode_lanes, "encode_chain": _chain, "encode_chain_batch": _chain_batch,
@@ -232,7 +236,7 @@ def test_pages_chain_equals_per_kernel_and_plain_paths(bcount, card):
     _one_allocation([chain[0], chain[1], *chain[2].values()])
 
 
-@pytest.mark.parametrize("entry", list(_cuda.CHAINS))
+@pytest.mark.parametrize("entry", CHAINS)
 @pytest.mark.parametrize("on", [False, True])
 def test_chain_call_counts_once_and_is_a_span_while_on(entry, on, monkeypatch):
     seen = []
@@ -256,13 +260,13 @@ def test_chain_call_counts_once_and_is_a_span_while_on(entry, on, monkeypatch):
         tracing.disable()
         tracing.reset()
     assert seen == [(1, 2)] and _cuda.CALLS[entry] == 1
-    kernels = _cuda.CHAINS[entry][0]
+    kernels = _cuda.ENTRIES[entry].kernels
     assert {n: c for n, c in _cuda.LAUNCHES.items() if c} == {n: 1 for n in kernels}
     assert len(kernels) == 3 and kernels[1:] == ("table_build", "encode_lanes")
     assert list(table) == ([(None, "launch.encode_chain")] if on else [])
 
 
-@pytest.mark.parametrize("entry", list(_cuda.CHAINS))
+@pytest.mark.parametrize("entry", CHAINS)
 def test_chain_call_raises_on_a_nonzero_return(entry, monkeypatch):
     monkeypatch.setattr(_cuda, "load", lambda: {entry: lambda *a: 700})
     before = dict(_cuda.LAUNCHES), dict(_cuda.CALLS)
@@ -278,7 +282,7 @@ def test_reset_launches_clears_calls(monkeypatch):
         monkeypatch.setitem(_cuda.LAUNCHES, name, 5)
     _cuda.reset_launches()
     assert set(_cuda.CALLS.values()) == set(_cuda.LAUNCHES.values()) == {0}
-    assert set(_cuda.CHAINS) <= set(_cuda.CALLS) and set(_cuda.KERNELS) <= set(_cuda.CALLS)
+    assert set(CHAINS) <= set(_cuda.CALLS) and set(_cuda.LAUNCHES) <= set(_cuda.CALLS)
 
 
 # name -> (a compress of the CPU tensor or of the same bytes on a "card",
@@ -311,3 +315,51 @@ def test_chain_engages_only_on_a_card_without_tables(name, card):
         x, pages = x.as_subclass(_OnCard), pages.as_subclass(_OnCard)
     compress(TorchCodec(K, device="cpu"), x, pages)
     assert _calls() == calls
+
+
+# What the table gave before it was one record an entry: the kernels, the
+# C entries, each entry's library, kernels and span.
+KERNELS = ["hist256", "hist256_batch", "table_build", "encode_lanes", "decode_lanes",
+           "hist256_onehot", "carry", "fold"]
+MORE_ENTRIES = {
+    "encode_lanes_rows": ("encode_chain", ("encode_lanes",), "launch.encode_lanes"),
+    "encode_chain": ("encode_chain", ("hist256", "table_build", "encode_lanes"),
+                     "launch.encode_chain"),
+    "encode_chain_batch": ("encode_chain", ("hist256_batch", "table_build", "encode_lanes"),
+                           "launch.encode_chain"),
+}
+LIBRARY_OF = {"hist256": "encode_chain", "hist256_batch": "encode_chain",
+              "table_build": "encode_chain", "encode_lanes": "encode_chain",
+              "decode_lanes": "decode_lanes", "hist256_onehot": "hist256_onehot",
+              "carry": "bench_ops", "fold": "bench_ops"}
+
+
+def test_the_table_derives_the_kernels_entries_and_spans():
+    assert list(_cuda.LAUNCHES) == KERNELS
+    assert list(_cuda.CALLS) == KERNELS + list(MORE_ENTRIES)
+    assert CHAINS == ["encode_chain", "encode_chain_batch"]
+    want = {k: (LIBRARY_OF[k], (k,), f"launch.{k}") for k in KERNELS} | MORE_ENTRIES
+    got = {entry: (e.library, e.kernels, e.span) for entry, e in _cuda.ENTRIES.items()}
+    assert got == want
+    assert all(e.span == "launch." + e.name for e in _cuda.ENTRIES.values())
+    assert {e.library for e in _cuda.ENTRIES.values()} == set(_cuda.LIBRARIES)
+
+
+@pytest.mark.parametrize("entry", list(_cuda.ENTRIES))
+def test_each_entry_has_the_arguments_its_source_declares(entry):
+    """The record's argument types, one a parameter of ``<entry>_launch``
+    in a source of its library, in its C types."""
+    ctype = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+             "int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "const void* const*": ctypes.POINTER(ctypes.c_void_p),
+             "const long long*": ctypes.POINTER(ctypes.c_longlong),
+             "const int*": ctypes.POINTER(ctypes.c_int)}
+    e = _cuda.ENTRIES[entry]
+    decls = []
+    for source in _cuda.LIBRARIES[e.library]:
+        with open(f"{_cuda._CSRC}/{source}.cu") as f:
+            text = f.read()
+        for part in text.split(f'extern "C" int {entry}_launch(')[1:]:
+            params = [" ".join(p.split()) for p in part[: part.index(")")].split(",")]
+            decls.append([ctype[p.rsplit(" ", 1)[0]] for p in params])
+    assert decls and all(d == e.argtypes for d in decls), decls

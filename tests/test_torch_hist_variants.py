@@ -89,20 +89,16 @@ def test_wrong_dtype_raises():
         hist_variants.hist_variant(torch.zeros(1 << 19, dtype=torch.int32), "i8dot")
 
 
-class _FakeCudaTensor:
-    """Stands in for a CUDA tensor on a machine without CUDA."""
+class _FakeCudaTensor(torch.Tensor):
+    """Stands in for a CUDA tensor on a machine without CUDA: n zero bytes
+    in CPU memory that report themselves on a card."""
 
-    is_cuda = True
-    device = torch.device("cuda")
-    dtype = torch.uint8
+    @staticmethod
+    def __new__(cls, n):
+        return torch.zeros(n, dtype=torch.uint8).as_subclass(cls)
 
-    def __init__(self, n):
-        self.shape = (n,)
-
-    def dim(self):
-        return 1
-
-    def is_contiguous(self):
+    @property
+    def is_cuda(self):
         return True
 
 
@@ -118,6 +114,7 @@ def test_cuda_tensor_takes_the_kernel(monkeypatch):
 
     monkeypatch.setattr(_cuda, "_lib", None)
     monkeypatch.setattr(_cuda, "_nvcc", no_nvcc)
+    monkeypatch.setattr(_cuda, "stream", lambda t: 0)
     monkeypatch.setattr(hist_variants, "hist_variant_plain", plain)
     before = dict(_cuda.LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc"):

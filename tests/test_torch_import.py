@@ -71,20 +71,18 @@ def test_workloads_match_jax_package(name):
     assert workloads.make_workload(name, 4096) == jax_workloads.make_workload(name, 4096)
 
 
-class _FakeCudaTensor:
-    """Stands in for a CUDA tensor on a machine without CUDA."""
+class _FakeCudaTensor(torch.Tensor):
+    """Stands in for a CUDA tensor on a machine without CUDA: zeros in CPU
+    memory that report themselves on a card, so that a wrapper gets as far
+    as its `_cuda.launch`."""
 
-    is_cuda = True
-    device = torch.device("cuda")
+    @staticmethod
+    def __new__(cls, shape, dtype):
+        return torch.zeros(shape, dtype=dtype).as_subclass(cls)
 
-    def __init__(self, shape, dtype):
-        self.shape, self.dtype = tuple(shape), dtype
-
-    def is_contiguous(self):
+    @property
+    def is_cuda(self):
         return True
-
-    def dim(self):
-        return len(self.shape)
 
 
 def _no_nvcc():
@@ -158,7 +156,8 @@ CUDA_CALLS = {
         _FakeCudaTensor((64,), torch.uint8), _FakeCudaTensor((), torch.float32)
     ),
     "fold": lambda: fused.fold(
-        _FakeCudaTensor((), torch.float32), _FakeCudaTensor((18, 64), torch.int32),
+        fused.accumulator("cpu").as_subclass(_FakeCudaTensor),
+        _FakeCudaTensor((18, 64), torch.int32),
         _FakeCudaTensor((64,), torch.uint8),
     ),
 }
@@ -167,9 +166,10 @@ CUDA_CALLS = {
 @pytest.mark.parametrize("name", list(CUDA_CALLS))
 def test_cuda_tensor_without_kernels_raises(name, monkeypatch):
     """No kernel library: the wrapper raises rather than running the
-    plain version on a CUDA tensor."""
+    plain version on a CUDA tensor (the build, in `_cuda.launch`)."""
     monkeypatch.setattr(_cuda, "_lib", None)
     monkeypatch.setattr(_cuda, "_nvcc", _no_nvcc)
+    monkeypatch.setattr(_cuda, "stream", lambda t: 0)
     before = dict(_cuda.LAUNCHES)
     with pytest.raises(RuntimeError, match="nvcc"):
         CUDA_CALLS[name]()

@@ -257,7 +257,7 @@ def test_kernel_ab_races_hist256_onehot():
     from huffman_tpu_torch.tools import kernel_ab
 
     assert "hist256_onehot" in kernel_ab.KERNELS
-    assert len(_cuda._ARGTYPES["hist256_onehot"]) == 5
+    assert len(_cuda.ENTRIES["hist256_onehot"].argtypes) == 5
     assert 'extern "C" int hist256_onehot_launch(const void* data, long long n, int variant,' \
         in _source("hist256_onehot")
 
