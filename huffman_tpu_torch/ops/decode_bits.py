@@ -20,6 +20,10 @@ A single block on a card has one route to that kernel, `decode_block`
 four tensors in one pass against what it expects of a block of that
 shape, allocates the flat output once and launches through
 `_cuda.launch`, as the batch does.
+
+The kernel looks a window up in two tables that each of its thread
+blocks builds: `decode_luts_plain` is their plain model, and
+`lut_entries_plain` the lookup through them.
 """
 
 from __future__ import annotations
@@ -33,6 +37,64 @@ from . import _cuda
 _I32 = torch.int32
 #: The shapes of a block's decode tables: e_bound, g_rank and syms.
 _TABLE_SHAPES = ((_L + 2,), (_L + 1,), (256,))
+#: The decode kernel's lookup (``csrc/decode_lanes.cu``): the window bits
+#: its first-level table resolves (kLut), its second-level entries (kL2)
+#: and the first-level entry of a longer code (kEsc).
+LUT_BITS = 11
+LEVEL2_SIZE = 2048
+ESCAPE = 1 << 31
+
+
+def _canonical_bsearch(win: np.ndarray, e_bound, g_rank, syms) -> np.ndarray:
+    """(byte | len << 8) of each window as the kernel computes it: len by
+    its binary search over e_bound[1..14] and two bounds past every
+    window, then the clipped rank."""
+    bound = np.concatenate([np.asarray(e_bound, np.int64)[1:_L], [2**31 - 1] * 2])
+    win = np.asarray(win, np.int64)
+    c = np.zeros_like(win)
+    for step in (8, 4, 2, 1):
+        c += np.where(win >= bound[c + step - 1], step, 0)
+    ln = c + 1
+    rank = np.clip((win >> (_L - ln)) + np.asarray(g_rank, np.int64)[ln], 0, 255)
+    return np.asarray(syms, np.int64)[rank] | ln << 8
+
+
+def decode_luts_plain(e_bound, g_rank, syms, lut_bits: int = LUT_BITS,
+                      level2_size: int = LEVEL2_SIZE) -> tuple[np.ndarray, np.ndarray, int]:
+    """Plain model of the two tables a thread block of the decode kernel
+    builds from a block's decode tables (numpy or CPU tensors).
+
+    Returns ``(first, second, ek)``: ``first`` (2^lut_bits,) int64, for
+    each lut_bits-bit prefix of the 15-bit window (byte | len << 8) where
+    its code is at most lut_bits long, else `ESCAPE` | lut_bits << 8; ``ek``, the first
+    window whose code is longer (e_bound[lut_bits] clipped to [0, 2^15]);
+    ``second`` (min(2^15 - ek, level2_size),) int64, the entry of window
+    ek + j at j."""
+    eb = np.asarray(e_bound, np.int64)
+    m = _L - lut_bits
+    ek = int(min(max(eb[lut_bits], 0), 1 << _L))
+    lo = np.arange(1 << lut_bits, dtype=np.int64) << m
+    first = np.where(lo + (1 << m) <= ek, _canonical_bsearch(lo, eb, g_rank, syms),
+                     ESCAPE | lut_bits << 8)
+    n2 = min((1 << _L) - ek, level2_size)
+    second = _canonical_bsearch(ek + np.arange(n2, dtype=np.int64), eb, g_rank, syms)
+    return first, second, ek
+
+
+def lut_entries_plain(win, e_bound, g_rank, syms, lut_bits: int = LUT_BITS,
+                      level2_size: int = LEVEL2_SIZE) -> np.ndarray:
+    """(byte | len << 8) of each 15-bit window as the decode kernel looks
+    it up: its first-level entry, or for a longer code its second-level
+    entry, or past the second level the canonical search."""
+    first, second, ek = decode_luts_plain(e_bound, g_rank, syms, lut_bits, level2_size)
+    win = np.asarray(win, np.int64)
+    e = first[win >> (_L - lut_bits)]
+    # A longer code's window is at least ek; past the second level, the search.
+    long_code = (e & ESCAPE) != 0
+    j = np.clip(win - ek, 0, len(second))
+    e = np.where(long_code, np.append(second, 0)[j], e)
+    past = long_code & (j == len(second))
+    return np.where(past, _canonical_bsearch(win, e_bound, g_rank, syms), e)
 
 
 def decode_tables_bitserial(len_count, sorted_syms) -> dict:

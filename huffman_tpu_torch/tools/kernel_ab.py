@@ -17,8 +17,14 @@ the same C entry points on the same inputs, made on the card from seeds:
   table_build   the 16 MiB biased block's sampled histogram (B = 1) and
                 the 160 x 100 KiB batch's histograms (B = 160)
   decode_lanes  the 16 MiB block (S = 128, K = 131072), the batch
-                (S = 100, K = 1024), and the escape-heavy 16 MiB block
-                (``bench.kernel_cases.escape_block``)
+                (S = 100, K = 1024), the escape-heavy 16 MiB block
+                (``bench.kernel_cases.escape_block``), the sharded
+                configuration's step (B = 64 blocks of 1 MiB, S = 256,
+                K = 4096), and 8 distinct 16 MiB blocks decoded in turns,
+                one launch each, so that the words come from device memory
+                as in block16m.device (ms a call of 8 launches); for each,
+                the share of its symbols that each version's first-level
+                table resolves (`first_level_share`)
   encode_lanes  the same three blocks, the escape-heavy one through the
                 Fibonacci table, whose long codes nearly fill every
                 lane's words, and the 16 MiB block at an address 3 bytes
@@ -90,21 +96,25 @@ ORDER = ("parent", "change", "change", "parent")
 ROUNDS = 2
 N, K = 16 << 20, 131072  # the single-block path's block and lanes
 NB, BK, BATCH = 100 << 10, 1024, 160  # the batched path's
+SN, SK, SB = 1 << 20, 4096, 64  # the sharded configuration's blocks, lanes and blocks a step
+TURNS = 8  # distinct 16 MiB blocks decoded in turns, as block16m.device's requests
 MAX_STAMPS, MAX_BLOCKS = 32, BATCH
 
 # Lines of decode_lanes.cu that the split replaces.
-LOOKUP = "      int entry = lut[static_cast<uint32_t>(buf >> 32) >> (32 - kLut)];"
-ESCAPE = "      if (len == 0) {"
+LOOKUP = '      "ld.shared.u32 %0, [a];\\n\\t}"'
+INDEX = '      "shr.u32 a, %1, %4;\\n\\t"'
+SECOND = "      const uint2 e = long_pair(w, base, stride, e1, ek, n2, l2, bound, gr, sy);"
+REFILL = '      "setp.ge.s32 p, %5, %3;\\n\\t"'
 SPLIT = {
-    "no table, fixed 4-bit length": (
-        LOOKUP, "      int entry = 4 << 8 | static_cast<int>(buf >> 56);"),
-    "one entry per warp, no bank conflicts": (
-        LOOKUP, "      int entry = lut[static_cast<uint32_t>(buf >> 63)];"),
-    "no escape branch": (ESCAPE, "      if (false) {"),
+    "no table, fixed 4-bit length": (LOOKUP, '      "mov.u32 %0, 1024;\\n\\t}"'),
+    "one entry per warp, no bank conflicts": (INDEX, '      "shr.u32 a, %1, 31;\\n\\t"'),
+    "no second level, a long code taken as kLut bits": (
+        SECOND, "      const uint2 e = make_uint2(e1 & 0xFFF, e2 & 0xFFF);"),
+    "no refill": (REFILL, '      "setp.ne.s32 p, %5, %5;\\n\\t"'),
 }
 
 # Constants of decode_lanes.cu that the sweep sets to other values.
-SWEEP = {"kThreads": (256, 1024), "kAhead": (1, 4), "kLut": (10, 12)}
+SWEEP = {"kLut": (10, 12), "kCopies": (1, 16), "kPrefetch": (0, 6), "kMaxThreads": (512,)}
 
 # Lines of encode_lanes.cu that its split replaces.
 STORE = "        *reinterpret_cast<uint4*>(words + static_cast<size_t>(row) * k + c) = v;"
@@ -286,10 +296,27 @@ def _tag(*parts: str) -> str:
     return "_".join(re.sub(r"\W+", "_", p) for p in parts)
 
 
-def _cases(dev, kernels) -> dict:
-    """name -> (kernel, launch(fn), plain output): each case's inputs."""
+def first_level_share(lengths, counts, lut_bits: int) -> float:
+    """The share of a decode case's symbols that the kernel's first-level
+    table resolves, those whose codes are at most ``lut_bits`` long: from
+    each block's code lengths and symbol counts, (B, 256) or (256,)."""
+    lengths = np.asarray(lengths).reshape(-1, 256)
+    counts = np.asarray(counts, np.float64).reshape(-1, 256)
+    return float(counts[lengths <= lut_bits].sum() / counts.sum())
+
+
+def lut_bits(src: str) -> int | None:
+    """The first-level table's window bits (``kLut``) of a decode_lanes
+    source; None where it defines none."""
+    m = re.search(r"constexpr int kLut = (\d+);", src)
+    return int(m.group(1)) if m else None
+
+
+def _cases(dev, kernels) -> tuple[dict, dict]:
+    """name -> (kernel, launch(fn), plain output): each case's inputs; and
+    for each decode case, its blocks' code lengths and symbol counts."""
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
-    cases = {}
+    cases, codes = {}, {}
 
     def table_case(h):
         bcount = h.shape[0]
@@ -301,8 +328,10 @@ def _cases(dev, kernels) -> dict:
 
         return "table_build", run, build_coding_plain_batch(h.cpu()).to(dev)
 
-    def decode_case(words, tables, s, w):
+    def decode_case(name, words, tables, s, w, blocks):
         bcount, pitch, k = words.shape
+        codes[name] = ((tables["enc_table"] & 15).cpu().numpy(),
+                       histogram256_batch(blocks.view(bcount, -1)).cpu().numpy())
         eb, gr, sy = (tables[key].reshape(bcount, -1).contiguous()
                       for key in ("e_bound", "g_rank", "sorted_syms"))
         out = torch.empty((bcount, s, k), dtype=torch.uint8, device=dev)
@@ -312,7 +341,31 @@ def _cases(dev, kernels) -> dict:
                       sy.data_ptr(), s, out.data_ptr(), stream()))
             return out
 
-        return "decode_lanes", run, decode_lanes_batch_plain(words, eb, gr, sy, s, w)
+        cases[name] = "decode_lanes", run, decode_lanes_batch_plain(words, eb, gr, sy, s, w)
+
+    def decode_turns(name, datas, s, w32):
+        """Blocks decoded in turns, one launch each a call, so that each
+        launch finds its words cold in L2 as a cell's request does: the
+        calls and the outputs of the 16 MiB cells' traffic."""
+        tabs, wds, lengths = [], [], []
+        for d in datas:
+            t = build_coding_device(table_hist(d, 32))
+            tabs.append([t[key].contiguous() for key in ("e_bound", "g_rank", "sorted_syms")])
+            wds.append(encode_lanes(d, t["enc_table"], s, K, w32)[0])
+            lengths.append((t["enc_table"] & 15).cpu().numpy())
+        codes[name] = np.stack(lengths), histogram256_batch(torch.stack(datas)).cpu().numpy()
+        out = torch.empty((len(datas), s, K), dtype=torch.uint8, device=dev)
+
+        def run(fn):
+            for i, (wd, (eb, gr, sy)) in enumerate(zip(wds, tabs)):
+                _check(fn(wd.data_ptr(), 1, w32, w32, K, eb.data_ptr(), gr.data_ptr(),
+                          sy.data_ptr(), s, out[i].data_ptr(), stream()))
+            return out
+
+        want = torch.stack([
+            decode_lanes_batch_plain(wd.view(1, w32, K), *(x.view(1, -1) for x in t), s, w32)[0]
+            for wd, t in zip(wds, tabs)])
+        cases[name] = "decode_lanes", run, want
 
     def encode_case(blocks, enc, s, k):
         bcount = blocks.shape[0]
@@ -369,11 +422,21 @@ def _cases(dev, kernels) -> dict:
         cases["table_build 16 MiB"] = table_case(hist.view(1, -1))
         cases[f"table_build B={BATCH}"] = table_case(bhist)
     if "decode_lanes" in kernels:
-        cases["decode_lanes 16 MiB"] = decode_case(words.view(1, w32, K), tables, s, w32)
-        cases[f"decode_lanes B={BATCH}"] = decode_case(
-            bwords, btab, bs, int((bbits.max() + 31) // 32))
-        cases["decode_lanes escape-heavy 16 MiB"] = decode_case(
-            ewords.view(1, w32, K), etab, s, w32)
+        decode_case("decode_lanes 16 MiB", words.view(1, w32, K), tables, s, w32, data)
+        decode_case(f"decode_lanes B={BATCH}", bwords, btab, bs, int((bbits.max() + 31) // 32),
+                    blocks)
+        decode_case("decode_lanes escape-heavy 16 MiB", ewords.view(1, w32, K), etab, s, w32,
+                    esc)
+        # The sharded configuration's step: 64 blocks of 1 MiB at K = 4096.
+        sblocks = torch.from_numpy(workloads.biased_u8(SB * SN, SB).reshape(SB, SN)).to(dev)
+        stab = _unpack(build_coding_flat_batch(histogram256_batch(sblocks)), SB)
+        ss = SN // SK
+        swords, sbits = encode_lanes_batch(sblocks, stab["enc_table"], ss, SK,
+                                           (ss * L + 31) // 32 + 1)
+        decode_case(f"decode_lanes sharded B={SB}", swords, stab, ss,
+                    int((sbits.max() + 31) // 32), sblocks)
+        turns = [torch.from_numpy(workloads.biased_u8(N, 100 + i)).to(dev) for i in range(TURNS)]
+        decode_turns(f"decode_lanes 16 MiB x {TURNS} in turns", turns, s, w32)
     if "encode_lanes" in kernels:
         cases["encode_lanes 16 MiB"] = encode_case(
             data.view(1, -1), tables["enc_table"].view(1, -1), s, K)
@@ -393,7 +456,7 @@ def _cases(dev, kernels) -> dict:
         for bname, blk in (("uniform", uniform), ("biased", data)):
             for mma in MMA_TYPES:
                 cases[f"hist256_onehot {mma} {bname} 16 MiB"] = onehot_case(blk, mma)
-    return cases
+    return cases, codes
 
 
 def _device_ms(fn) -> float:
@@ -469,7 +532,15 @@ def main(argv=None) -> None:
     built = _build_all(jobs)
     print(f"built {len(jobs)} libraries", flush=True)
     fns = {v: {n: built[_tag(v, n)][0] for n in kernels} for v in sources}
-    cases = _cases(dev, kernels)
+    cases, codes = _cases(dev, kernels)
+    shares = {}
+    for version in sources:
+        bits = lut_bits(sources[version].get("decode_lanes", ""))
+        if bits is None or not codes:
+            continue
+        shares[version] = {c: first_level_share(*codes[c], bits) for c in codes}
+        print(f"first level {version} (kLut = {bits}), share of symbols: "
+              + ", ".join(f"{c} {v:.6f}" for c, v in shares[version].items()), flush=True)
     for cname, (kernel, run, want) in cases.items():
         for version in sources:
             if not torch.equal(run(fns[version][kernel]), want):
@@ -540,7 +611,7 @@ def main(argv=None) -> None:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
             json.dump({"card": card, "ab": times, "phases": phases, "split": split,
-                       "sweep": sweep, "sass": sass}, f, indent=1)
+                       "sweep": sweep, "sass": sass, "first_level_share": shares}, f, indent=1)
 
 
 def _interleave(by: dict, rounds: int) -> list[float]:

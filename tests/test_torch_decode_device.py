@@ -23,9 +23,11 @@ import torch
 from test_torch_encode_chain import STAND_INS, _OnCard, _read, _write
 
 from huffman_tpu_torch import TorchCodec, tracing
+from huffman_tpu_torch.bench import kernel_cases
 from huffman_tpu_torch.models.torch_codec import FLAG_COMPACT, MAGIC
 from huffman_tpu_torch.ops import _cuda, decode_bits
 from huffman_tpu_torch.ops.decode_bits import decode_lanes_batch_plain, decode_lanes_plain
+from huffman_tpu_torch.ops.encode_chain import encode_pages
 
 torch.set_num_threads(2)
 
@@ -347,3 +349,99 @@ def test_every_c_call_goes_through_launch(name, spans, card, monkeypatch):
     assert _counts() == ({e: 1 for e in entries}, {k: 1 for k in kernels}, paths)
     opened = [key[1] for key in tracing.snapshot() if key[1].startswith("launch.")]
     assert opened == ([_cuda.ENTRIES[e].span for e in entries] if spans else [])
+
+
+# ------------------------------------------------------------- the kernel on a card
+
+
+@pytest.fixture
+def cuda():
+    """The first CUDA card, or a skip: the decode kernel runs only there."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the decode kernel has no CPU build")
+    return torch.device("cuda")
+
+
+# name -> (blocks (B, s*k) uint8 as numpy, s, k, whether they are coded
+# with the Fibonacci table (else each with its own), whether rows of
+# garbage follow the words the decode reads).  The Fibonacci table gives
+# symbols 12-19 15-bit codes, 9 of its 20 symbols codes longer than the
+# kernel's first level: `kernel_cases.escape_block` feeds them uniformly,
+# `kernel_cases.lane_skewed_block` feeds the 15-bit ones to odd lanes at a
+# rate that steps with the lane.
+CARD_CASES = {
+    "16 MiB, K = 131072, s = 128": (lambda: _biased(1, 16 << 20)[None], 128, 131072, False, False),
+    "B = 160, K = 1024, s = 100": (
+        lambda: np.stack([_biased(b, 100 << 10) for b in range(160)]), 100, 1024, False, False),
+    "B = 64, K = 4096, s = 256": (
+        lambda: np.stack([_biased(b, 1 << 20) for b in range(64)]), 256, 4096, False, False),
+    "K not a multiple of the threads a block": (
+        lambda: np.stack([_biased(b, 77 * 1500) for b in range(3)]), 77, 1500, False, False),
+    "escape-heavy block": (
+        lambda: kernel_cases.escape_block(128 * 131072)[None], 128, 131072, True, False),
+    "15-bit codes": (
+        lambda: np.stack([kernel_cases.lane_skewed_block(96, 2048, b) for b in range(4)]),
+        96, 2048, True, False),
+    "words past n_words read as zero": (
+        lambda: np.stack([_biased(b, 100 << 10) for b in range(16)]), 100, 1024, False, True),
+}
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", list(CARD_CASES))
+def test_kernel_equals_plain_decode_on_the_card(name, cuda):
+    from huffman_tpu_torch.ops import encode, table_build
+
+    make, s, k, fibonacci, garbage = CARD_CASES[name]
+    blocks = torch.from_numpy(make()).to(cuda)
+    bcount, w32 = blocks.shape[0], (s * 15 + 31) // 32 + 1
+    if fibonacci:
+        fib = torch.from_numpy(np.tile(kernel_cases.fibonacci_hist(), (bcount, 1))).to(cuda)
+        tables = table_build.build_coding_device_batch(fib.to(torch.int32))
+        words, bits = encode.encode_lanes_batch(blocks, tables["enc_table"], s, k, w32)
+    else:
+        words, bits, tables = encode_pages(blocks, s, k, w32)
+    tabs = [tables[key].contiguous() for key in ("e_bound", "g_rank", "sorted_syms")]
+    w = w32
+    if garbage:
+        # Rows from w on hold random words that the decode must not read.
+        w = int((bits.max() + 31) // 32)
+        junk = np.random.default_rng(5).integers(-2**31, 2**31, size=(bcount, w32 - w, k))
+        words[:, w:] = torch.from_numpy(junk.astype(np.int32)).to(cuda)
+    got = decode_bits.decode_lanes_batch(words, *tabs, s, w)
+    want = decode_lanes_batch_plain(words, *tabs, s, w)
+    assert torch.equal(got, want)
+    assert torch.equal(got.reshape(bcount, -1), blocks)
+    if bcount == 1:
+        one = decode_bits.decode_block(words[0], *(t[0] for t in tabs), k, s, s * k)
+        assert torch.equal(one, want.reshape(-1))
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("k", [1024, 131072])
+def test_kernel_decodes_a_partial_last_row_on_the_card(k, cuda):
+    n = 40 * k - 37
+    raw = _biased(k, n)
+    codec = TorchCodec(k, device="cuda")
+    comp = codec.encode_device(torch.from_numpy(raw).to(cuda))
+    got = codec.decode_device(comp)
+    t = comp.tables
+    plain = decode_lanes_plain(comp.words, t["e_bound"], t["g_rank"], t["sorted_syms"], 40)
+    assert got.shape == (n,) and torch.equal(got, plain.reshape(-1)[:n])
+    assert got.cpu().numpy().tobytes() == raw.tobytes()
+
+
+@pytest.mark.card
+@pytest.mark.parametrize("name", ["sampled", "fibonacci", "one_bit", "equal", "single"])
+def test_kernel_decodes_every_window_on_the_card(name, cuda):
+    """Lane i starts with the 15-bit window i mod 2^15; later bits random."""
+    data = torch.from_numpy(_biased(0, 16 << 20)).to(cuda)
+    from huffman_tpu_torch.ops import lookup, table_build
+
+    hist = lookup.table_hist(data, 32).cpu().numpy()
+    h = kernel_cases.decode_hists(hist)[name]
+    t = table_build.build_coding_device(torch.from_numpy(h.astype(np.int32)).to(cuda))
+    tabs = [t[key] for key in ("e_bound", "g_rank", "sorted_syms")]
+    words = torch.from_numpy(kernel_cases.window_words(rows=4)).to(cuda)
+    got = decode_bits.decode_lanes(words, *tabs, 4)
+    assert torch.equal(got, decode_lanes_plain(words, *tabs, 4))

@@ -93,6 +93,81 @@ def test_plain_decode_every_window_matches_jax(name):
     assert len(np.unique(got.numpy())) == int(t["num_syms"])
 
 
+def _clipped_tables() -> dict:
+    """Decode tables whose windows past the last code clip their rank:
+    one 1-bit code (ranks past 255 from window 2^14 on) and one 3-bit code
+    beside two 15-bit ones."""
+    one = np.zeros(16, np.int64)
+    one[1] = 1
+    three = np.zeros(16, np.int64)
+    three[[3, 15]] = [1, 2]
+    return {
+        name: decode_bits.decode_tables_bitserial(lc, np.arange(100, 100 + int(lc.sum())))
+        for name, lc in (("one 1-bit code", one), ("a 3-bit and two 15-bit codes", three))
+    }
+
+
+def _window_tables() -> dict:
+    """name -> (e_bound, g_rank, syms) as numpy: `kernel_cases.decode_hists`
+    (the sampled 16 MiB table, Fibonacci, one bit, equal counts, the
+    one-symbol block), the all-zero table of no symbol (every window past
+    the second level) and `_clipped_tables`."""
+    out = {}
+    hists = kernel_cases.decode_hists(_sampled_hist()) | {
+        "empty": kernel_cases.fixed_hists()["empty"]}
+    for name, h in hists.items():
+        t = table_build.build_coding_device(torch.from_numpy(h))
+        out[name] = tuple(t[key].numpy() for key in ("e_bound", "g_rank", "sorted_syms"))
+    for name, t in _clipped_tables().items():
+        out[name] = (t["e_bound"], t["g_rank"], t["syms"])
+    return out
+
+
+@pytest.mark.parametrize("name", ["sampled", "fibonacci", "one_bit", "equal", "single", "empty",
+                                  "one 1-bit code", "a 3-bit and two 15-bit codes"])
+def test_decode_luts_give_the_canonical_entry_of_every_window(name):
+    """The kernel's two tables (their plain model) give every 15-bit
+    window the canonical search's length and byte."""
+    eb, gr, sy = _window_tables()[name]
+    win = np.arange(1 << 15)
+    got = decode_bits.lut_entries_plain(win, eb, gr, sy)
+    words = torch.from_numpy((win.astype(np.uint32) << 17).view(np.int32)[None])
+    tabs = [torch.from_numpy(np.asarray(x, np.int32)) for x in (eb, gr, sy)]
+    want_byte = decode_bits.decode_lanes_plain(words, *tabs, 1)[0].numpy()
+    want_len = 1 + np.searchsorted(eb[1:15], win, side="right")
+    np.testing.assert_array_equal(got & 255, want_byte)
+    np.testing.assert_array_equal(got >> 8, want_len)
+    first, second, ek = decode_bits.decode_luts_plain(eb, gr, sy)
+    lens = want_len[:: 1 << (15 - decode_bits.LUT_BITS)]
+    # A prefix escapes exactly where its codes are longer than the first level.
+    np.testing.assert_array_equal((first & decode_bits.ESCAPE) != 0, lens > decode_bits.LUT_BITS)
+    assert len(second) == min((1 << 15) - ek, decode_bits.LEVEL2_SIZE)
+
+
+def test_decode_luts_cover_the_clip_and_the_second_level():
+    """Of the windows above, some ranks clip below 0 and past 255, some
+    windows take the second level and some lie past it."""
+    clipped_low = clipped_high = second = past = 0
+    for eb, gr, sy in _window_tables().values():
+        win = np.arange(1 << 15)
+        ln = 1 + np.searchsorted(eb[1:15], win, side="right")
+        rank = (win >> (15 - ln)) + gr[ln]
+        clipped_low += int((rank < 0).sum())
+        clipped_high += int((rank > 255).sum())
+        _, sec, ek = decode_bits.decode_luts_plain(eb, gr, sy)
+        long_code = ln > decode_bits.LUT_BITS
+        second += int((long_code & (win - ek < len(sec))).sum())
+        past += int((long_code & (win - ek >= len(sec))).sum())
+    assert min(clipped_low, clipped_high, second, past) > 0
+
+
+def test_decode_luts_match_the_kernel_constants():
+    src = _source("decode_lanes")
+    assert f"constexpr int kLut = {decode_bits.LUT_BITS};" in src
+    assert f"constexpr int kL2 = {decode_bits.LEVEL2_SIZE};" in src
+    assert "constexpr uint32_t kEsc = 1u << 31;" in src and decode_bits.ESCAPE == 1 << 31
+
+
 def test_window_words_start_with_every_window():
     w = kernel_cases.window_words().view(np.uint32)
     assert w.shape == (3, 1 << 15)
@@ -195,10 +270,24 @@ def test_kernel_ab_split_replaces_one_line_each():
 
     src = _source("decode_lanes")
     variants = kernel_ab.split_variants(src)
-    assert len(variants) == 3
+    assert len(variants) == len(kernel_ab.SPLIT) >= 3
     for text in variants.values():
         assert len(text.splitlines()) == len(src.splitlines())
         assert sum(a != b for a, b in zip(text.splitlines(), src.splitlines())) == 1
+
+
+def test_kernel_ab_first_level_share_counts_the_short_codes():
+    from huffman_tpu_torch.tools import kernel_ab
+
+    lengths = np.zeros((2, 256), np.int64)
+    lengths[:, :3] = [[1, 11, 12], [2, 2, 1]]
+    counts = np.zeros((2, 256), np.int64)
+    counts[:, :3] = [[5, 3, 2], [1, 1, 0]]
+    assert kernel_ab.first_level_share(lengths, counts, 11) == 10 / 12
+    assert kernel_ab.first_level_share(lengths, counts, 12) == 1.0
+    assert kernel_ab.first_level_share(lengths[0], counts[0], 10) == 0.5
+    assert kernel_ab.lut_bits(_source("decode_lanes")) == decode_bits.LUT_BITS
+    assert kernel_ab.lut_bits("no constant") is None
 
 
 def test_kernel_ab_reports_times_in_the_order_taken():
