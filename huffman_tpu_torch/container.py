@@ -21,6 +21,12 @@ kernels are queued before block i is read back and serialized (or, on
 decode, before block i's output is read).  Every copy between the host
 and the card goes through `staging`, whose events let the host wait for
 block i alone; a blocking ``.cpu()`` would also wait for block i+1.
+
+`record` makes that choice for every writer of HTP3 blocks
+(`compress_blocks`, the single block of ``TorchCodec.compress`` and
+``parallel.ShardedCodec.compress``) and counts it in `STORED`; while the
+recorder of host spans (`tracing`) is on, each stored record is the span
+``compress.stored``.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from __future__ import annotations
 import struct
 import zlib
 
-from . import native
+from . import native, tracing
 from .staging import HostCopy
 
 MAGIC = b"HTPC"
@@ -38,6 +44,33 @@ KIND_REF = 0x52  # 'R'
 KIND_CRC = 0x43  # 'C'
 
 DEFAULT_BLOCK = 16 << 20
+
+#: The stored fallback, as `record` chose it: ``blocks``, the non-empty
+#: blocks it weighed; ``records``, those it stored raw; ``encoded_bytes``,
+#: their raw bytes, each encoded and serialized before the blob lost to
+#: the raw bytes.  Always on; `reset_stored`.
+STORED = {"blocks": 0, "records": 0, "encoded_bytes": 0}
+
+
+def reset_stored() -> None:
+    """Zero `STORED`."""
+    for key in STORED:
+        STORED[key] = 0
+
+
+def record(raw: bytes, pos: int, raw_len: int, blob: bytes) -> tuple[int, int, bytes]:
+    """The record of the block ``raw[pos : pos + raw_len]`` whose HTP3 blob
+    is ``blob``: the blob, or the raw bytes where the blob is not at least
+    8 bytes smaller; counted in `STORED`."""
+    if not raw_len:
+        return (KIND_HUFF, 0, blob)
+    STORED["blocks"] += 1
+    if len(blob) < raw_len + 8:
+        return (KIND_HUFF, raw_len, blob)
+    with tracing.span("compress.stored"):
+        STORED["records"] += 1
+        STORED["encoded_bytes"] += raw_len
+        return (KIND_STORED, raw_len, raw[pos : pos + raw_len])
 
 
 def pack(records: list[tuple[int, int, bytes]], block_size: int) -> bytes:
@@ -86,11 +119,7 @@ def compress_blocks(raw: bytes, codec, block_size: int = DEFAULT_BLOCK) -> bytes
     piped = enc is not None and ser is not None
 
     def finish(pos, raw_len, comp_or_blob):
-        blob = ser(comp_or_blob) if piped else comp_or_blob
-        if raw_len and len(blob) >= raw_len + 8:
-            records.append((KIND_STORED, raw_len, raw[pos : pos + raw_len]))
-        else:
-            records.append((KIND_HUFF, raw_len, blob))
+        records.append(record(raw, pos, raw_len, ser(comp_or_blob) if piped else comp_or_blob))
 
     if piped:
         pending = []  # (pos, raw_len, staged block), oldest first

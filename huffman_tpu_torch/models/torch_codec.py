@@ -33,7 +33,8 @@ While the recorder of host spans (`tracing`) is on, each device-API
 method, the batched statics copy, `TorchCodec.upload`, `serialize` (its
 wait for the block's copies, the lane-byte transpose, the count encoding
 and bit pack) and `deserialize` (the count decoding and bit unpack, the
-upload of words and tables) is a span.
+upload of words and tables) is a span.  A block that `compress` stores
+raw is counted in ``container.STORED`` and spanned ``compress.stored``.
 """
 
 from __future__ import annotations
@@ -439,11 +440,11 @@ class TorchCodec:
         n = len(raw)
         if n > self.block_bytes:
             return container.compress_blocks(raw, self, self.block_bytes)
-        blob = self._compress_blob(raw)
-        if n > 0 and len(blob) >= n + 8:
+        rec = container.record(raw, 0, n, self._compress_blob(raw))
+        if rec[0] == container.KIND_STORED:
             # Incompressible: a stored record.
-            return container.pack([(container.KIND_STORED, n, raw)], self.block_bytes)
-        return blob
+            return container.pack([rec], self.block_bytes)
+        return rec[2]
 
     def decompress(self, blob: bytes) -> bytes:
         if blob[:4] == container.MAGIC:

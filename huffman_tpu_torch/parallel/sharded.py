@@ -400,12 +400,7 @@ class ShardedCodec:
                             words=words[j], bit_counts=bits[j], raw_size=bb, k=self.k,
                             tables={"len_count": lc[j], "sorted_syms": ss[j], "num_syms": ns[j]},
                         )
-                        blob = tc.serialize(comp)
-                        if len(blob) >= raw_len + 8:
-                            mine.append((b, (container.KIND_STORED, raw_len,
-                                             raw[b * bb : b * bb + raw_len])))
-                        else:
-                            mine.append((b, (container.KIND_HUFF, raw_len, blob)))
+                        mine.append((b, container.record(raw, b * bb, raw_len, tc.serialize(comp))))
                 with tracing.span("sharded.compress.gather_records"):
                     ranked = sorted((x for part in _gather_objects(mine, self.mesh) for x in part),
                                     key=lambda x: x[0])
